@@ -9,11 +9,14 @@ parity tests; the port never imports it, nor JAX.
 Layer map (each module sits at the same path as its JAX counterpart):
   geometry/   SE(3) exp/log + pinhole camera
   ops/        grid normals, depth pyramid with the planar plane table
-  kernels/    hand-written CUDA kernels (sources in csrc/) + plain versions
-  align/      projective point-to-plane ICP, batched over a leading B
+  kernels/    hand-written CUDA kernels (sources in csrc/) + plain versions:
+              the pyramid level builder and the fused Gauss-Newton step
+  align/      projective point-to-plane ICP (stride / normal-space
+              sampling), batched over a leading B
   parallel/   batched and chunked pair registration
   data/       synthetic raycast scenes, depth-unit policy
-  tracking/   frame-to-frame tracker, trajectory I/O and ATE/RPE
+  tracking/   frame-to-frame and frame-to-keyframe trackers, trajectory
+              I/O and ATE/RPE
   api/        Tracker facade + TrackerConfig
   interop.py  carries configuration and tracker state across from JAX
 """

@@ -6,6 +6,10 @@ point-to-plane with a Geman-McClure/GNC weight and a distance gate, and
 each pose update solves damped 6x6 Gauss-Newton normal equations on
 se(3). Where JAX vmapped a single pair, every function here carries the
 batch dimension B itself; where JAX used fori_loop, a Python loop runs.
+On CUDA tensors each association round is one launch of the fused GN-step
+kernel (kernels/gn_step.py) plus one reduction launch per further inner
+iteration; CPU tensors take the plain associate_planes_t +
+normal_equations_fixed_t below.
 """
 
 from __future__ import annotations
@@ -15,6 +19,7 @@ from typing import NamedTuple, Sequence
 import torch
 
 from realsensetracker_tpu_torch.geometry import camera, se3
+from realsensetracker_tpu_torch.kernels import gn_step
 from realsensetracker_tpu_torch.ops.pyramid import PyramidLevel, build_pyramid, downsample_depth
 
 
@@ -25,7 +30,7 @@ class ProjectiveIcpConfig(NamedTuple):
     # coarse -> fine; 4 levels (coarsest 80x60 at 640x480)
     inner_iters: int = 2  # GN steps per association (fixed planes)
     samples: int = 2048  # source points sampled at the FINEST level
-    sample_mode: str = "stride"  # "stride" | "normal_space" (not ported yet)
+    sample_mode: str = "stride"  # "stride" | "normal_space" (BASELINE config 3)
     coarse_sample_divisor: int = 4  # level l uses samples / divisor**l
     min_samples: int = 256  # floor for the coarsest levels
     dist_threshold: float = 0.25  # meters; plane-distance correspondence gate
@@ -55,14 +60,6 @@ def fit_levels(cfg, height: int, width: int, min_extent: int = 24):
     return cfg._replace(iters=cfg.iters[levels - max_levels:])
 
 
-def _check_sample_mode(cfg: ProjectiveIcpConfig) -> None:
-    if cfg.sample_mode == "normal_space":
-        raise NotImplementedError(
-            "sample_mode='normal_space' is not ported yet (ROADMAP queue 1 item 3, "
-            "sample_level_normal_space)"
-        )
-
-
 def _level_samples(cfg: ProjectiveIcpConfig, li: int) -> int:
     return max(cfg.samples // (cfg.coarse_sample_divisor**li), cfg.min_samples)
 
@@ -79,6 +76,53 @@ def sample_level(level: PyramidLevel, count: int):
     nrm = level.normal_map.reshape(b, npix, 3)[:, :lim:stride]
     ok = level.valid.reshape(b, npix)[:, :lim:stride]
     return pts, nrm, ok
+
+
+def sample_level_normal_space(level: PyramidLevel, count: int, bins: int = 6):
+    """Normal-space sampling (BASELINE config 3): samples balanced across
+    surface orientations, so one dominant surface cannot starve the
+    constraint directions. Returns (pts (B,P,3), normals (B,P,3), ok (B,P)).
+
+    Normals are binned by their dominant signed axis (6 bins, invalid
+    pixels last); a stable argsort keeps pixel order inside each bin's
+    segment, and bin b contributes the head of its segment: count // bins
+    samples, one more for the first count % bins bins. A window that would
+    run past the end is clamped left, and ``off`` masks the entries it then
+    borrows from the previous segment. Under-full bins spill into the next
+    segment (valid points, slightly unbalanced). Needs a pyramid built with
+    normals.
+    """
+    b, h, w = level.valid.shape
+    npix = h * w
+    count = min(count, npix)
+    n = level.normal_map.reshape(b, npix, 3)
+    ok = level.valid.reshape(b, npix)
+    axis = torch.argmax(n.abs(), dim=-1)  # first maximum on ties, as jnp
+    sign = torch.gather(n, 2, axis[..., None])[..., 0] < 0
+    bin_id = torch.where(ok, axis + 3 * sign.long(), bins)  # invalid -> bins
+    order = torch.argsort(bin_id, dim=1, stable=True)
+    counts = torch.zeros((b, bins + 1), dtype=torch.long, device=n.device)
+    counts.scatter_add_(1, bin_id, torch.ones_like(bin_id))
+    starts = torch.cumsum(counts, dim=1) - counts  # exclusive
+
+    # Lane plan, made on the device: the bin each output lane reads
+    # (bins 0..rem-1 take per_bin + 1 lanes, the rest per_bin), that bin's
+    # share, and the lane's place in it.
+    per_bin, rem = divmod(count, bins)
+    j = torch.arange(count, device=n.device)
+    head = rem * (per_bin + 1)
+    lane_bin = torch.where(j < head, j // (per_bin + 1), rem + (j - head) // max(per_bin, 1))
+    lane_take = per_bin + (lane_bin < rem).long()
+    lane = j - (lane_bin * per_bin + torch.clamp(lane_bin, max=rem))
+
+    seg_start = starts[:, lane_bin]  # (B, count)
+    start = torch.minimum(seg_start, npix - lane_take)
+    off = seg_start - start
+    seg_ok = (lane >= off) & (lane < off + torch.minimum(counts[:, lane_bin], lane_take))
+    idx = torch.gather(order, 1, start + lane)
+    pts = torch.gather(level.vertex_map.reshape(b, npix, 3), 1, idx[..., None].expand(-1, -1, 3))
+    nrm = torch.gather(n, 1, idx[..., None].expand(-1, -1, 3))
+    return pts, nrm, torch.gather(ok, 1, idx) & seg_ok
 
 
 def sample_depth_points(
@@ -194,10 +238,24 @@ def solve_update(T, H, b, aux, num_samples: int, cfg: ProjectiveIcpConfig):
 
 def _step(T, src_pts_t, src_ok, dst_level: PyramidLevel, intr: camera.Intrinsics, cfg: ProjectiveIcpConfig):
     """One association round: one plane gather at the current poses, then
-    cfg.inner_iters GN updates against those fixed planes."""
-    n_t, d_plane, ok = associate_planes_t(T, src_pts_t, src_ok, dst_level, intr, cfg)
+    cfg.inner_iters GN updates against those fixed planes.
+
+    CUDA tensors: gn_associate_reduce gathers the planes AND reduces the
+    first system at the same poses in one launch; gn_reduce_fixed serves
+    the further inner iterations. CPU tensors: the plain functions above.
+    """
     num_samples = src_pts_t.shape[-1]
     stats = None
+    if src_pts_t.is_cuda:
+        system, n_t, d_plane, ok = gn_step.gn_associate_reduce(
+            T, src_pts_t, src_ok, dst_level.packed, intr, cfg
+        )
+        for it in range(max(cfg.inner_iters, 1)):
+            if it:
+                system = gn_step.gn_reduce_fixed(T, src_pts_t, n_t, d_plane, ok, cfg)
+            T, stats = solve_update(T, *gn_step.unpack_system(system), num_samples, cfg)
+        return T, stats
+    n_t, d_plane, ok = associate_planes_t(T, src_pts_t, src_ok, dst_level, intr, cfg)
     for _ in range(max(cfg.inner_iters, 1)):
         H, b, aux = normal_equations_fixed_t(T, src_pts_t, n_t, d_plane, ok, cfg)
         T, stats = solve_update(T, H, b, aux, num_samples, cfg)
@@ -206,8 +264,8 @@ def _step(T, src_pts_t, src_ok, dst_level: PyramidLevel, intr: camera.Intrinsics
 
 def _initial(batch: int, init_transform, device):
     if init_transform is None:
-        return se3.identity(device=device).expand(batch, 4, 4)
-    return init_transform.to(device=device, dtype=torch.float32).expand(batch, 4, 4)
+        return se3.identity(device=device).expand(batch, 4, 4).contiguous()
+    return init_transform.to(device=device, dtype=torch.float32).expand(batch, 4, 4).contiguous()
 
 
 def _zero_stats(batch: int, device):
@@ -233,7 +291,8 @@ def projective_icp_sampled(
     stats = _zero_stats(batch, device)
     for li in range(num_levels - 1, -1, -1):  # coarse -> fine
         src_pts, src_ok = src_samples[li]
-        src_pts_t = src_pts.transpose(1, 2)  # lane-major, once per level
+        src_pts_t = src_pts.transpose(1, 2).contiguous()  # lane-major, once per level
+        src_ok = src_ok.contiguous()
         for _ in range(cfg.iters[num_levels - 1 - li]):
             T, stats = _step(T, src_pts_t, src_ok, dst_levels[li], intrs[li], cfg)
     rmse, inlier_frac, matched = stats
@@ -251,11 +310,12 @@ def projective_icp(
 ) -> ProjectiveIcpResult:
     """Coarse-to-fine registration of src pyramids onto dst pyramids
     (both from ops.pyramid.build_pyramid, fine -> coarse; cfg.iters is
-    coarse -> fine), stride-sampling each source level."""
-    _check_sample_mode(cfg)
+    coarse -> fine), sampling each source level by cfg.sample_mode
+    ("normal_space" needs source levels built with normals)."""
+    sample = sample_level_normal_space if cfg.sample_mode == "normal_space" else sample_level
     samples = []
     for li, level in enumerate(src_levels[: len(intrs)]):
-        pts, _, ok = sample_level(level, _level_samples(cfg, li))
+        pts, _, ok = sample(level, _level_samples(cfg, li))
         samples.append((pts, ok))
     return projective_icp_sampled(samples, dst_levels, intrs, init_transform, cfg)
 
@@ -269,16 +329,19 @@ def register_depth_pair(
 ) -> ProjectiveIcpResult:
     """End-to-end registration of B pairs: depths (B, H, W) in -> the
     src-to-dst SE(3) transforms out. The destination builds plane-table
-    pyramids; the source is sampled straight from its depth levels."""
+    pyramids; the source is sampled straight from its depth levels, or,
+    for sample_mode="normal_space", from a full pyramid with normals."""
     if src_depth.dim() != 3 or src_depth.shape != dst_depth.shape:
         raise ValueError(
             f"need two (B, H, W) batches of one shape, got {tuple(src_depth.shape)} "
             f"and {tuple(dst_depth.shape)}"
         )
-    _check_sample_mode(cfg)
     cfg = fit_levels(cfg, *src_depth.shape[-2:])
     num_levels = len(cfg.iters)
     dst_levels, intrs = build_pyramid(dst_depth, intr, num_levels, cfg.min_depth, cfg.max_depth)
+    if cfg.sample_mode == "normal_space":
+        src_levels, _ = build_pyramid(src_depth, intr, num_levels, cfg.min_depth, cfg.max_depth)
+        return projective_icp(src_levels, dst_levels, tuple(intrs), init_transform, cfg)
     src_depth = src_depth.to(torch.float32)
     valid = camera.valid_mask(src_depth, cfg.min_depth, cfg.max_depth)
     d = torch.where(valid, src_depth, 0.0)

@@ -24,8 +24,9 @@ def from_rt(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     R = R.expand(batch + (3, 3))
     t = t.expand(batch + (3,))
     top = torch.cat([R, t[..., :, None]], dim=-1)
-    bottom = torch.zeros(batch + (1, 4), dtype=R.dtype, device=R.device)
-    bottom[..., 0, 3] = 1.0
+    # [0, 0, 0, 1] made on the device: assigning a Python number into a
+    # 0-d CUDA view copies it from the host and synchronizes the stream.
+    bottom = torch.eye(4, dtype=R.dtype, device=R.device)[3:].expand(batch + (1, 4))
     return torch.cat([top, bottom], dim=-2)
 
 
@@ -59,19 +60,36 @@ def transform_points_t(T: torch.Tensor, points_t: torch.Tensor) -> torch.Tensor:
     return torch.matmul(rotation(T), points_t) + T[..., :3, 3:4]
 
 
-def orthonormalize(T: torch.Tensor) -> torch.Tensor:
-    """Project an accumulated pose back onto SE(3) (nearest rotation by SVD).
+def _cofactors(R: torch.Tensor) -> torch.Tensor:
+    """Columns (r1 x r2, r2 x r0, r0 x r1) of 3x3 stacks: det(R) R^-T."""
+    return torch.linalg.cross(torch.roll(R, -1, dims=-1), torch.roll(R, -2, dims=-1), dim=-2)
 
-    Pose-feedback loops amplify rotation denormalization; one 3x3 SVD at
-    each accumulation point removes it. Like the reference, a reflection
-    (det < 0) is fixed by flipping the third column of the composed R.
+
+_POLAR_STEPS = 6  # Newton steps of orthonormalize
+
+
+def orthonormalize(T: torch.Tensor) -> torch.Tensor:
+    """Project an accumulated pose back onto SE(3): the nearest rotation.
+
+    Pose-feedback loops amplify rotation denormalization; projecting at
+    each accumulation point removes it. The JAX reference takes U V^T of an
+    SVD; here Newton's iteration R <- (R + R^-T) / 2 converges to the same
+    orthogonal polar factor U V^T, quadratically, in elementwise ops:
+    torch.linalg.svd on a CUDA tensor checks its result on the host, a
+    device-to-host copy that would stall every tracked frame. Six Newton
+    steps reach f32 rounding for singular values within [0.3, 3];
+    accumulated poses sit within ~1e-6 of 1. Like the reference, a
+    reflection (det < 0) is fixed by flipping the third column.
     """
     R = rotation(T)
-    u, _, vt = torch.linalg.svd(R)
-    Rn = torch.matmul(u, vt)
-    sign = torch.where(torch.linalg.det(Rn) < 0, -1.0, 1.0)
-    Rn = torch.cat([Rn[..., :, :2], Rn[..., :, 2:] * sign[..., None, None]], dim=-1)
-    return from_rt(Rn, translation(T))
+    for _ in range(_POLAR_STEPS):
+        C = _cofactors(R)
+        det = (R[..., :, 0] * C[..., :, 0]).sum(-1)
+        R = 0.5 * (R + C / det[..., None, None])
+    det = (R[..., :, 0] * _cofactors(R)[..., :, 0]).sum(-1)
+    sign = torch.where(det < 0, -1.0, 1.0)
+    R = torch.cat([R[..., :, :2], R[..., :, 2:] * sign[..., None, None]], dim=-1)
+    return from_rt(R, translation(T))
 
 
 def accumulate(T_prev: torch.Tensor, T_delta: torch.Tensor) -> torch.Tensor:

@@ -15,6 +15,7 @@ from realsensetracker_tpu_torch.align.projective import ProjectiveIcpConfig
 from realsensetracker_tpu_torch.geometry.camera import Intrinsics
 from realsensetracker_tpu_torch.ops.pyramid import PyramidLevel
 from realsensetracker_tpu_torch.tracking.frame_to_frame import FrameToFrameTracker
+from realsensetracker_tpu_torch.tracking.keyframe import KeyframeTracker
 from realsensetracker_tpu_torch.tracking.trajectory import Trajectory
 
 
@@ -58,8 +59,41 @@ def frame_to_frame_state_from_jax(jax_tracker, device="cpu") -> FrameToFrameTrac
         tracker._pose = _tensor(jax_tracker._pose, device)
         tracker._pose_np = np.asarray(jax_tracker._pose_np, dtype=np.float32)
     tracker._index = int(jax_tracker._index)
-    tracker.trajectory = Trajectory(
-        list(jax_tracker.trajectory.timestamps),
-        [np.array(p, dtype=np.float64) for p in jax_tracker.trajectory.poses],
+    tracker.trajectory = _trajectory(jax_tracker.trajectory)
+    return tracker
+
+
+def _trajectory(traj) -> Trajectory:
+    return Trajectory(list(traj.timestamps), [np.array(p, dtype=np.float64) for p in traj.poses])
+
+
+def keyframe_state_from_jax(jax_tracker, device="cpu") -> KeyframeTracker:
+    """A port KeyframeTracker that continues the JAX KeyframeTracker's
+    stream: same thresholds, depth_scale, fitted cfg, keyframe pyramid and
+    pose, pose, failure bookkeeping, frame index and trajectory."""
+    tracker = KeyframeTracker(
+        intrinsics_from_jax(jax_tracker.intr),
+        icp_config_from_jax(jax_tracker.cfg),
+        min_inlier_fraction=float(jax_tracker.min_inlier_fraction),
+        max_translation=float(jax_tracker.max_translation),
+        max_rotation=float(jax_tracker.max_rotation),
+        min_overlap=float(jax_tracker.min_overlap),
+        max_consecutive_failures=int(jax_tracker.max_consecutive_failures),
+        depth_scale=float(jax_tracker.depth_scale),
+        device=device,
     )
+    if jax_tracker._kf_levels is not None:
+        tracker._kf_levels = tuple(pyramid_levels_from_numpy(jax_tracker._kf_levels, device))
+        tracker._kf_pose = _tensor(jax_tracker._kf_pose, device)
+        tracker._pose = _tensor(jax_tracker._pose, device)
+        tracker._pose_np = np.asarray(jax_tracker._pose_np, dtype=np.float32)
+    if jax_tracker._last_levels is not None:
+        tracker._last_levels = tuple(pyramid_levels_from_numpy(jax_tracker._last_levels, device))
+    if jax_tracker._last_depth is not None:
+        tracker._last_depth = np.asarray(jax_tracker._last_depth)
+    tracker._fail_streak = int(jax_tracker._fail_streak)
+    tracker._fails_since_kf = int(jax_tracker._fails_since_kf)
+    tracker.last_span_failures = int(jax_tracker.last_span_failures)
+    tracker._index = int(jax_tracker._index)
+    tracker.trajectory = _trajectory(jax_tracker.trajectory)
     return tracker

@@ -2,6 +2,9 @@
 
 * level_kernel: fused depth -> plane table [n | d = n.q] for one pyramid
   level (the destination-frame preprocessing of projective ICP).
+* gn_step: fused Gauss-Newton step -- projective association into the
+  plane table + reduction of the 6x6 system, and the fixed-plane reduction
+  of the further inner iterations.
 """
 
 from realsensetracker_tpu_torch.kernels.level_kernel import build_level_packed  # noqa: F401

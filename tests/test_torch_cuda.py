@@ -4,8 +4,13 @@ a machine with a card and no JAX, without the suite's conftest:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
-The kernel is held against its plain torch version at atol 2e-5 with the
-validity pattern exact, and the CUDA paths against the same code on CPU.
+The level kernel is held against its plain torch version at atol 2e-5
+with the validity pattern exact; the GN-step kernels against theirs with at
+most 0.1% of the associations flipped (a ulp in the point transform can
+move a point across a pixel's half-way line) and the systems, on the
+kernel's own association, to 1e-4 relative (H to max|H|, b to
+sqrt(max|H| wsse), f32 sums in another order); the CUDA paths against the
+same code on CPU.
 """
 
 import numpy as np
@@ -16,9 +21,10 @@ from realsensetracker_tpu_torch.align import projective
 from realsensetracker_tpu_torch.api import Tracker, TrackerConfig
 from realsensetracker_tpu_torch.data import synthetic
 from realsensetracker_tpu_torch.geometry import camera, se3
-from realsensetracker_tpu_torch.kernels import level_kernel
+from realsensetracker_tpu_torch.kernels import gn_step, level_kernel
 from realsensetracker_tpu_torch.ops import pyramid
 from realsensetracker_tpu_torch.parallel import batched
+from realsensetracker_tpu_torch.tracking.keyframe import KeyframeTracker
 
 pytestmark = pytest.mark.cuda
 
@@ -79,20 +85,79 @@ def test_pyramid_auto_uses_kernel(cuda):
         assert torch.equal(g.valid, r.valid)
 
 
-def test_register_batch_on_cuda_matches_cpu(cuda):
+def _gn_inputs(shape, p, device):
+    """(T (3,4,4), pts (3,3,P), ok (3,P), packed (3,4,H,W), intr) at one
+    level shape: destination plane tables from the level kernel, source
+    points sampled from frames moved by small twists."""
+    intr = _intr(*shape)
+    dst = _depths(intr, 3, device)
+    packed = level_kernel.build_level_packed(dst, intr)
+    src = torch.flip(dst, dims=(0,)).contiguous()  # another frame of the same scene
+    pts, ok = projective.sample_depth_points(src, intr, p)
+    tw = 0.01 * torch.randn((3, 6), generator=torch.Generator().manual_seed(2))
+    T = se3.exp(tw).to(device).contiguous()
+    return T, pts.transpose(1, 2).contiguous(), ok.contiguous(), packed, intr
+
+
+def _assert_systems_close(got, ref):
+    H, b, (wsse, wsum, count) = gn_step.unpack_system(got)
+    Hr, br, (wsser, wsumr, countr) = gn_step.unpack_system(ref)
+    h_scale = Hr.abs().amax(dim=(1, 2))
+    assert ((H - Hr).abs().amax(dim=(1, 2)) <= 1e-4 * h_scale).all()
+    b_scale = torch.sqrt(h_scale * wsser)
+    assert ((b - br).abs().amax(dim=1) <= 1e-4 * b_scale + 1e-12).all()
+    torch.testing.assert_close(wsse, wsser, rtol=1e-4, atol=1e-12)
+    torch.testing.assert_close(wsum, wsumr, rtol=1e-4, atol=1e-12)
+    assert ((count - countr).abs() <= 1).all()  # a gate decision within an ulp
+
+
+@pytest.mark.parametrize("p", [2048, 777])
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_gn_kernels_match_reference(cuda, shape, p):
+    cfg = projective.ProjectiveIcpConfig()
+    T, pts, ok, packed, intr = _gn_inputs(shape, p, cuda)
+    before = dict(gn_step.LAUNCHES)
+    system, n, d, aok = gn_step.gn_associate_reduce(T, pts, ok, packed, intr, cfg)
+    again = gn_step.gn_associate_reduce(T, pts, ok, packed, intr, cfg)[0]
+    torch.cuda.synchronize()
+    assert gn_step.LAUNCHES["gn_associate_reduce"] == before["gn_associate_reduce"] + 2
+    torch.testing.assert_close(again, system, rtol=0, atol=0)  # no atomics: bit-identical
+    _, rn, rd, rok = gn_step.gn_step_reference(T, pts, ok, packed, intr, cfg)
+    same = (aok == rok) & (~rok | ((n == rn).all(1) & (d == rd)))
+    assert (~same).sum().item() <= 1e-3 * same.numel()  # association flips
+    _assert_systems_close(system, gn_step.gn_reduce_fixed_reference(T, pts, n, d, aok, cfg))
+    T2 = se3.compose(se3.exp(torch.tensor([0.001, 0.0, -0.002, 0.0, 0.001, 0.0], device=cuda)), T).contiguous()
+    fixed = gn_step.gn_reduce_fixed(T2, pts, n, d, aok, cfg)
+    assert gn_step.LAUNCHES["gn_reduce_fixed"] == before["gn_reduce_fixed"] + 1
+    _assert_systems_close(fixed, gn_step.gn_reduce_fixed_reference(T2, pts, n, d, aok, cfg))
+
+
+def _register_on_both(cuda, cfg):
     intr = _intr(120, 160)
     sc = synthetic.default_scene(seed=1)
     tw = torch.tensor([[0.02, -0.01, 0.015, 0.01, -0.015, 0.01], [0.0, 0.01, 0.0, 0.0, 0.0, 0.02]])
-    dst = synthetic.render_depth(intr, se3.identity(), sc)[None].expand(2, -1, -1)
+    dst = synthetic.render_depth(intr, se3.identity(), sc)[None].expand(2, -1, -1).contiguous()
     src = torch.stack([synthetic.render_depth(intr, se3.exp(t), sc) for t in tw])
-    cfg = projective.ProjectiveIcpConfig()
-    ref = batched.register_batch(src, dst.contiguous(), intr, cfg)
-    before = level_kernel.LAUNCHES
+    ref = batched.register_batch(src, dst, intr, cfg)
+    before, gn_before = level_kernel.LAUNCHES, dict(gn_step.LAUNCHES)
     got = batched.register_batch(src.to(cuda), dst.to(cuda), intr, cfg)
-    assert level_kernel.LAUNCHES == before + len(projective.fit_levels(cfg, 120, 160).iters)
+    fitted = projective.fit_levels(cfg, 120, 160)
+    pyramids = 2 if cfg.sample_mode == "normal_space" else 1  # + the source pyramid
+    assert level_kernel.LAUNCHES == before + pyramids * len(fitted.iters)
+    rounds = sum(fitted.iters)
+    assert gn_step.LAUNCHES["gn_associate_reduce"] == gn_before["gn_associate_reduce"] + rounds
+    assert gn_step.LAUNCHES["gn_reduce_fixed"] == gn_before["gn_reduce_fixed"] + rounds * (cfg.inner_iters - 1)
     np.testing.assert_allclose(
         se3.log(got.transform.cpu()).numpy(), se3.log(ref.transform).numpy(), atol=1e-4
     )
+
+
+def test_register_batch_on_cuda_matches_cpu(cuda):
+    _register_on_both(cuda, projective.ProjectiveIcpConfig())
+
+
+def test_normal_space_register_on_cuda_matches_cpu(cuda):
+    _register_on_both(cuda, projective.ProjectiveIcpConfig(sample_mode="normal_space"))
 
 
 def test_tracker_on_cuda_matches_cpu(cuda):
@@ -103,3 +168,26 @@ def test_tracker_on_cuda_matches_cpu(cuda):
         tracker = Tracker(TrackerConfig(intrinsics=intr, device=str(device)))
         poses.append(np.stack([tracker.process(d).pose for d in depths]))
     np.testing.assert_allclose(poses[1], poses[0], atol=1e-4)
+
+
+@pytest.mark.parametrize("window", [0, 4], ids=["per_frame", "window4"])
+def test_keyframe_tracker_on_cuda_matches_cpu(cuda, window):
+    """u16 frames, thresholds low enough that keyframes get promoted."""
+    intr = _intr(90, 120)
+    depths, _ = synthetic.render_trajectory(intr, 9, seed=2, step_scale=0.02)
+    raw = [np.asarray(d.numpy() * 1000.0 + 0.5, np.uint16) for d in depths]
+    runs = []
+    for device in ("cpu", cuda):
+        tracker = KeyframeTracker(intr, max_translation=0.04, max_rotation=0.04, device=device)
+        if window:
+            res, i = [], 0
+            while i < len(raw):
+                res += tracker.process_window(raw[i : i + window], pad_to=window, truncate_at_events=False)
+                i = len(res)
+        else:
+            res = [tracker.process(d) for d in raw]
+        runs.append(res)
+    assert sum(r.is_new_keyframe for r in runs[0][1:]) >= 2
+    for a, b in zip(*runs):
+        assert a.success == b.success and a.is_new_keyframe == b.is_new_keyframe
+        np.testing.assert_allclose(b.pose, a.pose, atol=1e-4)

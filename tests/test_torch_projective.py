@@ -193,11 +193,92 @@ def test_fit_levels_matches_jax(hw, iters):
     assert got.iters == ref.iters
 
 
-def test_normal_space_sampling_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        projective.register_depth_pair(
-            torch.ones(1, 120, 160), torch.ones(1, 120, 160), INTR, CFG._replace(sample_mode="normal_space")
-        )
+def _normal_space_levels(h, w, seed, bin_sizes, invalid):
+    """(JAX level, port level) of one (h, w) frame whose normals fall into
+    the signed-axis bins 0..5 with the given pixel counts (the rest of the
+    pixels in bin 5), ``invalid`` pixels invalid, a few exact |n| ties,
+    and a vertex map that numbers the pixels."""
+    rng = np.random.RandomState(seed)
+    npix = h * w
+    labels = np.full(npix, 5)
+    labels[: sum(bin_sizes)] = np.repeat(np.arange(len(bin_sizes)), bin_sizes)
+    labels = labels[rng.permutation(npix)]
+    n = rng.uniform(-0.5, 0.5, (npix, 3)).astype(np.float32)
+    axis, neg = labels % 3, labels >= 3
+    n[np.arange(npix), axis] = np.where(neg, -1.0, 1.0)
+    n[rng.choice(npix, 8, replace=False)] = [0.6, -0.6, 0.5]  # tie: first axis wins
+    valid = np.ones(npix, bool)
+    valid[rng.choice(npix, invalid, replace=False)] = False
+    n[~valid] = 0.0
+    vmap = np.arange(npix * 3, dtype=np.float32).reshape(h, w, 3)
+    arrays = (vmap, n.reshape(h, w, 3), valid.reshape(h, w), valid.reshape(h, w))
+    jlevel = jpyr.PyramidLevel(*(jnp.asarray(a) for a in arrays), packed=None)
+    level = pyramid.PyramidLevel(*(torch.from_numpy(a.copy())[None] for a in arrays), packed=None)
+    return jlevel, level
+
+
+def _bins(n, valid):
+    axis = np.argmax(np.abs(n), -1)
+    sign = np.take_along_axis(n, axis[:, None], -1)[:, 0] < 0
+    return np.where(valid, axis + 3 * sign, 6)
+
+
+# (h, w, count, bin sizes of bins 0.., invalid pixels): an under-full
+# rare bin and a last segment shorter than its share, so its window is
+# clamped (off > 0); counts that are not multiples of 6; fewer samples than
+# bins; more samples than pixels.
+NORMAL_SPACE_CASES = [
+    (64, 128, 2048, [10, 1800, 2200, 1800, 2260, 100], 30),
+    (64, 128, 1001, [300, 40, 900, 0, 2500], 200),
+    (75, 100, 500, [5, 700, 0, 600, 3000], 1000),
+    (75, 100, 7, [3, 0, 2, 1], 7000),
+    (75, 100, 5, [3, 0, 2, 1], 7000),
+    (75, 100, 10000, [100, 100, 100, 100, 100], 50),
+]
+
+
+@pytest.mark.parametrize("h, w, count, bin_sizes, invalid", NORMAL_SPACE_CASES)
+def test_sample_level_normal_space_matches_jax(h, w, count, bin_sizes, invalid):
+    jlevel, level = _normal_space_levels(h, w, count, bin_sizes, invalid)
+    jpts, jnrm, jok = jproj.sample_level_normal_space(jlevel, count)
+    pts, nrm, ok = projective.sample_level_normal_space(level, count)
+    np.testing.assert_array_equal(pts[0].numpy(), np.asarray(jpts))
+    np.testing.assert_array_equal(nrm[0].numpy(), np.asarray(jnrm))
+    np.testing.assert_array_equal(ok[0].numpy(), np.asarray(jok))
+    assert ok.shape == (1, min(count, h * w))
+
+
+def test_normal_space_cases_cover_the_edge_cases():
+    """The first case has an under-full bin and a clamped (off > 0) window."""
+    h, w, count, bin_sizes, invalid = NORMAL_SPACE_CASES[0]
+    _, level = _normal_space_levels(h, w, count, bin_sizes, invalid)
+    bins = _bins(level.normal_map[0].reshape(-1, 3).numpy(), level.valid[0].reshape(-1).numpy())
+    counts = np.bincount(bins, minlength=7)
+    starts = np.cumsum(counts) - counts
+    take = count // 6 + (np.arange(6) < count % 6)
+    assert (counts[:6] < take).any()  # an under-full bin
+    assert (starts[:6] > h * w - take).any()  # a clamped window
+    assert count % 6 and NORMAL_SPACE_CASES[1][2] % 6
+
+
+def test_sample_level_normal_space_batches():
+    """B levels at once give each level's own samples."""
+    a = _normal_space_levels(64, 128, 0, [10, 1800, 2200, 1800, 2260, 100], 30)[1]
+    b = _normal_space_levels(64, 128, 1, [300, 40, 900, 0, 2500], 200)[1]
+    both = pyramid.PyramidLevel(*(torch.cat([x, y]) for x, y in zip(a[:4], b[:4])), packed=None)
+    got = projective.sample_level_normal_space(both, 1001)
+    for i, one in enumerate((a, b)):
+        for g, r in zip(got, projective.sample_level_normal_space(one, 1001)):
+            torch.testing.assert_close(g[i : i + 1], r, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("i", [1, 3])
+def test_register_depth_pair_normal_space_matches_jax(pairs, i):
+    src, dst, _ = pairs
+    cfg = CFG._replace(sample_mode="normal_space")
+    ref = jproj.register_depth_pair(j32(src[i]), j32(dst[i]), JINTR, JCFG._replace(sample_mode="normal_space"))
+    got = projective.register_depth_pair(torch.from_numpy(src[i : i + 1]), torch.from_numpy(dst[i : i + 1]), INTR, cfg)
+    _assert_results_match(got, jproj.ProjectiveIcpResult(*(np.asarray(x)[None] for x in ref)))
 
 
 def test_icp_config_defaults_match_jax():

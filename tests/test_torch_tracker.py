@@ -114,7 +114,7 @@ def test_world_model_not_ported_yet():
         FrameToFrameTracker(INTR, CFG, map_capacity=1024)
 
 
-@pytest.mark.parametrize("method", ["keyframe", "model", "icp", "gicp", "rgbd", "tsdf"])
+@pytest.mark.parametrize("method", ["model", "icp", "gicp", "rgbd", "tsdf"])
 def test_unported_methods_name_their_roadmap_item(method):
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
         Tracker(TrackerConfig(intrinsics=INTR, method=method))
