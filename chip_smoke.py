@@ -8,8 +8,13 @@ Run from the repository root on a machine with a CUDA card, nvcc and no
 need for JAX. Phases, one JSON line each:
 
   1. device     -- the card (name and power limit from nvidia-smi); TF32 off.
-  2. build      -- builds csrc/level_kernel.cu and csrc/gn_step.cu, one nvcc
-                   each, started together.
+  2. build      -- builds csrc/downsample.cu, csrc/level_kernel.cu and
+                   csrc/gn_step.cu, one nvcc each, started together.
+  2b. downsample_kernel -- holds downsample_levels against its plain torch
+                   version (validity identical, depth within 2 ulp; the
+                   worst gap is printed) on a 640x480 batch with 5% holes
+                   (B=4), on each of its level shapes, and at 482x64 and
+                   36x128, for L = 2, 3 and 4.
   3. kernel     -- holds the CUDA level kernel against its plain torch
                    version (atol 2e-5, the validity pattern identical) at
                    the four level shapes of a 640x480 frame (B=4) and at
@@ -31,15 +36,34 @@ need for JAX. Phases, one JSON line each:
                    of 8, the two modes in turns: identical results, every
                    frame tracked, ATE rmse < 0.02 m, one device-to-host copy
                    per window (profiler trace).
-  9. timing     -- level and GN kernels vs their plain versions at B=512
-                   per level shape, and register_batch_chunked pairs/s on
-                   2048 pairs, chunk 512.
+  8b. world_map -- Tracker(method="projective", map_capacity=65536) over
+                   the 30 frames of phase 7: every frame succeeds, ATE rmse
+                   < 0.02 m, the map count after 10 frames within 1% of the
+                   same code's CPU run.
+  8c. model     -- Tracker(method="model") (frame-to-model: 32768-point
+                   model, 4096-point frames, 128 ICP iterations) over 20
+                   640x480 frames: every frame succeeds, the last pose
+                   within 0.05 of the truth, > 100 map points, and the
+                   first 3 frames within 1e-3 (twist) of the CPU run.
+  8d. icp       -- Tracker(method="icp") (8192-point clouds, 128 ICP
+                   iterations) over 10 640x480 frames: every frame
+                   succeeds, the first 3 within 1e-3 of the CPU run.
+                   Phases 8b-8d also print host ms/frame medians, device
+                   syncs and copies per frame (profiler trace) and peak
+                   device memory.
+  9. timing     -- downsample, level and GN kernels vs their plain versions
+                   at B=512 (640x480, L=4; per level shape), in turns, and
+                   register_batch_chunked pairs/s on 2048 pairs, chunk 512.
 
-Each main path (register, register_normal_space, tracker, keyframe) runs
-with every launch count set to 0 just before it and read just after; a
-kernel the path runs must have launched there. Then the kernels line, and
-last {"ok": true, "device": {...}}. Any failed check raises: the exit code
-is non-zero and the last line is not printed.
+Each main path (register, register_normal_space, tracker, keyframe,
+world_map, model, icp) runs with every launch count set to 0 just before
+it and read just after; a kernel the path runs must have launched there,
+and the cloud paths (model, icp), which run no kernel of their own, must
+have launched none. Then the kernels line, with each kernel's bound (the
+larger of its bytes over 3.35 TB/s and its f32 operations over 67
+TFLOP/s, from this run's inputs), and last {"ok": true, "device": {...}}.
+Any failed check raises: the exit code is non-zero and the last line is
+not printed.
 """
 
 from __future__ import annotations
@@ -58,7 +82,19 @@ TWIST_BAR_IDENTITY = 1e-4  # tests/test_projective_icp.py:65
 TWIST_BAR_MOTION = 3e-3  # tests/test_projective_icp.py:81
 TWIST_BAR_CPU = 1e-4  # CUDA vs the same code on CPU (the JAX parity bar)
 ATE_BAR = 0.02  # meters, tests/test_tracking.py:40
+ULP_BAR = 2  # downsample kernel vs plain version, depth
+MAP_COUNT_BAR = 0.01  # world map count, CUDA vs CPU, relative
+MODEL_TRUTH_BAR = 0.05  # tests/test_tracking.py:249-251
+CLOUD_CPU_BAR = 1e-3  # model / icp twist, CUDA vs CPU, first 3 frames
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM peak HBM3 bandwidth
+F32_FLOPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
+    # The stride-2 compaction probes (stride2_slice :103, stride2_reshape
+    # :115): the in-kernel 2x2 downsample between pyramid levels.
+    "downsample_levels": (
+        "realsensetracker_tpu_torch/csrc/downsample.cu",
+        "tools/tpu/mosaic_probe5.py:103",
+    ),
     "build_level_packed": (
         "realsensetracker_tpu_torch/csrc/level_kernel.cu",
         "realsensetracker_tpu/kernels/level_kernel.py:42",
@@ -91,7 +127,7 @@ def main() -> None:
     from realsensetracker_tpu_torch.api import Tracker, TrackerConfig
     from realsensetracker_tpu_torch.data import synthetic
     from realsensetracker_tpu_torch.geometry import camera, se3
-    from realsensetracker_tpu_torch.kernels import build, gn_step, level_kernel
+    from realsensetracker_tpu_torch.kernels import build, downsample, gn_step, level_kernel
     from realsensetracker_tpu_torch.ops import pyramid
     from realsensetracker_tpu_torch.parallel import batched
     from realsensetracker_tpu_torch.tracking import trajectory
@@ -132,41 +168,82 @@ def main() -> None:
             d, valid = pyramid.downsample_depth(d, valid)
         return out
 
-    def holes(d, frac=0.05):
-        mask = torch.rand(d.shape, generator=gen, device=dev) < frac
-        return torch.where(mask, 0.0, d).contiguous()
-
     # Launch counts: each main path runs with every count at 0 and is read
     # just after; main_launches sums the main paths for the kernels line.
     main_launches = dict.fromkeys(KERNELS, 0)
 
     def reset_counts():
+        downsample.LAUNCHES = 0
         level_kernel.LAUNCHES = 0
         for k in gn_step.LAUNCHES:
             gn_step.LAUNCHES[k] = 0
 
     def read_counts():
         torch.cuda.synchronize()
-        got = {"build_level_packed": level_kernel.LAUNCHES, **gn_step.LAUNCHES}
+        got = {"downsample_levels": downsample.LAUNCHES, "build_level_packed": level_kernel.LAUNCHES,
+               **gn_step.LAUNCHES}
         for k, v in got.items():
             main_launches[k] += v
         return got
 
-    def check_counts(got, what, levels, gn_rounds):
-        want = {"build_level_packed": levels, "gn_associate_reduce": gn_rounds,
+    def check_counts(got, what, levels, gn_rounds, pyramids):
+        """levels: level-kernel launches; gn_rounds: association rounds;
+        pyramids: downsample launches (one per pyramid or source-level set)."""
+        want = {"downsample_levels": pyramids, "build_level_packed": levels, "gn_associate_reduce": gn_rounds,
                 "gn_reduce_fixed": gn_rounds * (cfg.inner_iters - 1)}
         check(got == want, f"{what}: launches {got}, expected {want}")
 
-    # ---- 2. build both kernels, one nvcc each, together ------------------
+    def bound(nbytes, flops):
+        """(ms, what bounds it): the least time of the card for the work."""
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+        return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+    # ---- 2. build the kernels, one nvcc each, together -------------------
+    sources = (downsample.SOURCE, level_kernel.SOURCE, gn_step.SOURCE)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        list(pool.map(build.build, (level_kernel.SOURCE, gn_step.SOURCE)))
+    with ThreadPoolExecutor(max_workers=len(sources)) as pool:
+        list(pool.map(build.build, sources))
     build_s = time.perf_counter() - t0
     ptxas = {}
-    for src in (level_kernel.SOURCE, gn_step.SOURCE):
+    for src in sources:
         log = (build.library_path(src).parent / "build.log").read_text()
         ptxas[src] = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
     emit("build", seconds=build_s, ptxas=ptxas)
+
+    def holes(d, frac=0.05):
+        mask = torch.rand(d.shape, generator=gen, device=dev) < frac
+        return torch.where(mask, 0.0, d).contiguous()
+
+    # ---- 2b. downsample kernel vs plain version --------------------------
+    ds_worst = {"ulps": 0, "abs": 0.0}
+
+    def compare_downsample(d, levels):
+        got = downsample.downsample_levels(d, levels, cfg.min_depth)
+        ref = downsample.downsample_levels_reference(d, levels)
+        torch.cuda.synchronize()
+        check(len(got) == len(ref) == levels - 1, f"downsample at {tuple(d.shape)}: {len(got)} levels")
+        ulps, err = 0, 0.0
+        for (gd, gv), (rd, rv) in zip(got, ref):
+            check(torch.equal(gv, rv), f"downsample at {tuple(d.shape)} L={levels}: validity differs")
+            if gd.numel():
+                ulps = max(ulps, (gd.view(torch.int32) - rd.view(torch.int32)).abs().max().item())
+                err = max(err, (gd - rd).abs().max().item())
+        check(ulps <= ULP_BAR, f"downsample at {tuple(d.shape)} L={levels}: {ulps} ulp > {ULP_BAR}")
+        ds_worst["ulps"], ds_worst["abs"] = max(ds_worst["ulps"], ulps), max(ds_worst["abs"], err)
+        return {"shape": list(d.shape), "levels": levels, "max_ulps": ulps, "max_abs_err": err}
+
+    poses4 = se3.exp(0.02 * torch.randn((4, 6), generator=gen, device=dev))
+    frames4 = torch.stack([synthetic.render_depth(intr, T, scene) for T in poses4])
+    ds_cases = []
+    for d in levels_of(frames4):
+        for levels in ((2, 3, 4) if d.shape[-1] == intr.width else (2,)):
+            ds_cases.append(compare_downsample(holes(d), levels))
+    for h, w, f in ((482, 64, 60.0), (36, 128, 50.0)):
+        odd = camera.Intrinsics(fx=f, fy=f, cx=(w - 1) / 2, cy=(h - 1) / 2, width=w, height=h)
+        d = torch.stack([synthetic.render_depth(odd, T, scene) for T in poses4])
+        for levels in (2, 3, 4):
+            ds_cases.append(compare_downsample(holes(levels_of(d)[0]), levels))
+    emit("downsample_kernel", ulp_bar=ULP_BAR, worst=ds_worst, cases=ds_cases)
 
     # ---- 3. level kernel vs plain version --------------------------------
     max_err = 0.0
@@ -183,8 +260,6 @@ def main() -> None:
         check(same_valid, f"kernel vs plain at {tuple(d.shape)}: validity pattern differs")
         return {"shape": list(d.shape), "max_abs_err": err, "valid_frac": (ref[:, 2] != 0).float().mean().item()}
 
-    poses4 = se3.exp(0.02 * torch.randn((4, 6), generator=gen, device=dev))
-    frames4 = torch.stack([synthetic.render_depth(intr, T, scene) for T in poses4])
     cases = [compare(holes(d), li) for d, li in zip(levels_of(frames4), level_intrs)]
     odd_shapes = []
     for h, w, f in ((482, 64, 60.0), (36, 128, 50.0)):
@@ -275,7 +350,7 @@ def main() -> None:
 
     reset_counts()
     res64 = batched.register_batch(src, dst, intr, cfg)
-    check_counts(read_counts(), "register_batch", num_levels, rounds)
+    check_counts(read_counts(), "register_batch", num_levels, rounds, 2)
     acc64 = check_twists(res64, truth, torch.tensor([0]), "register_batch B=64")
 
     reps = 16
@@ -285,7 +360,7 @@ def main() -> None:
     reset_counts()
     res_big = batched.register_batch_chunked(src_big, dst_big, intr, cfg, chunk=chunk)
     chunk_launches = read_counts()
-    check_counts(chunk_launches, "register_batch_chunked", num_levels * chunks, rounds * chunks)
+    check_counts(chunk_launches, "register_batch_chunked", num_levels * chunks, rounds * chunks, 2 * chunks)
     for i in range(0, src_big.shape[0], chunk):
         part = batched.register_batch(src_big[i : i + chunk], dst_big[i : i + chunk], intr, cfg)
         for a, b in zip(res_big, part):
@@ -304,7 +379,7 @@ def main() -> None:
     ns_cfg = cfg._replace(sample_mode="normal_space")
     reset_counts()
     res_ns = batched.register_batch(src, dst, intr, ns_cfg)
-    check_counts(read_counts(), "register normal_space", 2 * num_levels, rounds)
+    check_counts(read_counts(), "register normal_space", 2 * num_levels, rounds, 2)
     acc_ns = check_twists(res_ns, truth, torch.tensor([0]), "normal_space B=64", motion_bar=5e-2)
     n_cpu = 8
     ref_ns = batched.register_batch(src[:n_cpu].cpu(), dst[:n_cpu].cpu(), intr, ns_cfg)
@@ -323,7 +398,7 @@ def main() -> None:
         results.append(tracker.process(depths[i], float(i)))  # ends in a host transfer
         frame_ms.append((time.perf_counter() - t0) * 1e3)
     tracker_launches = read_counts()
-    check_counts(tracker_launches, "tracker", num_levels * len(results), rounds * (len(results) - 1))
+    check_counts(tracker_launches, "tracker", num_levels * len(results), rounds * (len(results) - 1), len(results))
 
     def ate_of(traj, poses):
         gt = trajectory.Trajectory()
@@ -373,10 +448,10 @@ def main() -> None:
             ms.append((time.perf_counter() - t0) * 1e3 / len(chunk_frames))
             for k, v in read_counts().items():
                 launches[k] += v
-    check_counts(pf_launches, "keyframe per frame", num_levels * total, rounds * (total - 1))
+    check_counts(pf_launches, "keyframe per frame", num_levels * total, rounds * (total - 1), total)
     # The first window call seeds the keyframe with frame 0 and pads frames
     # 1-7 to 8 rows: one batched pyramid per window, one GN round per row.
-    check_counts(win_launches, "keyframe windowed", num_levels * (1 + n_windows), rounds * total)
+    check_counts(win_launches, "keyframe windowed", num_levels * (1 + n_windows), rounds * total, 1 + n_windows)
 
     check(len(pf_res) == len(win_res) == total, "keyframe: a frame is missing")
     pose_diff = max(float(np.abs(a.pose - b.pose).max()) for a, b in zip(pf_res, win_res))
@@ -404,6 +479,90 @@ def main() -> None:
          ms_per_frame_median=statistics.median(pf_ms[1:]),
          windowed_ms_per_frame_median=statistics.median(win_ms[1:]), card=card)
 
+    # ---- 8b-8d. world map, frame-to-model, cloud ICP (main paths) ---------
+    def twist_gap(a, b):
+        """Max |twist| of a^-1 b over a stack of host poses."""
+        a, b = torch.as_tensor(np.stack(a)), torch.as_tensor(np.stack(b))
+        return se3.log(torch.linalg.inv(a) @ b).abs().max().item()
+
+    def trace_frame(tracker_, frames_):
+        """Device-to-host copies and syncs per frame over frames_, from a
+        profiler trace, and the device time of those frames."""
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for f in frames_:
+                tracker_.process(f)
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        copies = {e.key: e.count / len(frames_) for e in events if "Memcpy" in e.key or "Synchronize" in e.key}
+        device_us = sum(getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+                        for e in events)
+        device_ms = device_us / 1e3 / len(frames_)
+        return copies, device_ms
+
+    def run_stream(cfg_, frames_):
+        """(tracker, results, host ms per frame) with the counts reset just
+        before and read just after, peak memory from the first frame on."""
+        tracker_ = Tracker(cfg_)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        res_, ms_ = [], []
+        for i, f in enumerate(frames_):
+            t0 = time.perf_counter()
+            res_.append(tracker_.process(f, float(i)))  # ends in a host transfer
+            ms_.append((time.perf_counter() - t0) * 1e3)
+        return tracker_, res_, ms_, read_counts(), torch.cuda.max_memory_allocated() / 1e9
+
+    # 8b. The world map on the 30 frames of phase 7.
+    map_cfg = TrackerConfig(intrinsics=intr, method="projective", map_capacity=65536, device="cuda")
+    wm, wm_res, wm_ms, wm_launches, wm_peak = run_stream(map_cfg, depths)
+    check_counts(wm_launches, "world_map", num_levels * len(wm_res), rounds * (len(wm_res) - 1), len(wm_res))
+    wm_ate = ate_of(wm.trajectory, poses_gt)
+    check(all(r.success for r in wm_res), "world_map: a frame failed")
+    check(wm_ate["rmse"] < ATE_BAR, f"world_map: ATE rmse {wm_ate['rmse']} >= {ATE_BAR}")
+    n_cpu_frames = 10
+    wm_gpu10 = Tracker(map_cfg)
+    wm_cpu10 = Tracker(TrackerConfig(intrinsics=intr, method="projective", map_capacity=65536, device="cpu"))
+    for f in depths[:n_cpu_frames]:
+        wm_gpu10.process(f)
+        wm_cpu10.process(f.cpu())
+    count_gpu, count_cpu = int(wm_gpu10.world_map.count().item()), int(wm_cpu10.world_map.count().item())
+    check(abs(count_gpu - count_cpu) <= MAP_COUNT_BAR * count_cpu,
+          f"world_map: {count_gpu} points after {n_cpu_frames} frames, the CPU run {count_cpu}")
+    wm_copies, wm_dev_ms = trace_frame(wm, depths[:4])
+    emit("world_map", frames=len(wm_res), ate_rmse=wm_ate["rmse"], map_points=int(wm.world_map.count().item()),
+         map_points_10=count_gpu, map_points_10_cpu=count_cpu, launches=wm_launches,
+         host_ms_per_frame_median=statistics.median(wm_ms[1:]), device_ms_per_frame=wm_dev_ms,
+         copies_and_syncs_per_frame=wm_copies, peak_mem_GB=wm_peak, card=card)
+
+    # 8c-8d. The cloud trackers: their NN search is a torch.matmul; no
+    # kernel of the port runs on these paths.
+    cloud_phases = (
+        ("model", 20, lambda d: TrackerConfig(intrinsics=intr, method="model", device=d)),
+        ("icp", 10, lambda d: TrackerConfig(intrinsics=intr, method="icp", device=d)),
+    )
+    model_depths, model_poses = synthetic.render_trajectory(intr, 20, seed=0, device=dev)
+    for name, n_frames, make_cfg in cloud_phases:
+        frames_ = model_depths[:n_frames]
+        trk, res_, ms_, launches_, peak_ = run_stream(make_cfg("cuda"), frames_)
+        check(all(n == 0 for n in launches_.values()), f"{name}: a kernel launched on a cloud path: {launches_}")
+        check(all(r.success for r in res_), f"{name}: a frame failed")
+        cpu_trk = Tracker(make_cfg("cpu"))
+        cpu_poses = [cpu_trk.process(f.cpu()).pose for f in frames_[:3]]
+        vs_cpu = twist_gap(cpu_poses, [r.pose for r in res_[:3]])
+        check(vs_cpu <= CLOUD_CPU_BAR, f"{name}: CUDA vs CPU twist {vs_cpu} > {CLOUD_CPU_BAR}")
+        fields = {}
+        if name == "model":
+            truth_gap = twist_gap([model_poses[n_frames - 1].cpu().numpy()], [trk.pose])
+            map_points = int(trk.world_map.count().item())
+            check(truth_gap < MODEL_TRUTH_BAR, f"model: last pose {truth_gap} from the truth")
+            check(map_points > 100, f"model: {map_points} map points")
+            fields = {"truth_twist_gap": truth_gap, "map_points": map_points}
+        copies_, dev_ms_ = trace_frame(trk, frames_[-2:])
+        emit(name, frames=n_frames, twist_vs_cpu_3=vs_cpu, launches=launches_, **fields,
+             host_ms_per_frame_median=statistics.median(ms_[1:]), device_ms_per_frame=dev_ms_,
+             copies_and_syncs_per_frame=copies_, peak_mem_GB=peak_, card=card)
+
     # ---- 9. timing (CUDA events, after warm-up) --------------------------
     def time_ms(fn, reps):
         fn()
@@ -421,7 +580,20 @@ def main() -> None:
         p1, k1, k2, p2 = time_ms(run_p, reps_p), time_ms(run_k, reps_k), time_ms(run_k, reps_k), time_ms(run_p, reps_p)
         return (k1 + k2) / 2, (p1 + p2) / 2
 
+    # The downsample at B=512, 640x480, L=4: one launch for the chunk.
+    d512 = levels_of(dst_big[:chunk])[0]
+    compare_downsample(d512, num_levels)
+    ds_k, ds_p = turns(lambda: downsample.downsample_levels_reference(d512, num_levels),
+                       lambda: downsample.downsample_levels(d512, num_levels, cfg.min_depth), 3, 20)
+    coarse_px = sum(h * w for h, w in downsample.level_shapes(*d512.shape[1:], num_levels)) * chunk
+    ds_bytes = d512.numel() * 4 + coarse_px * 5  # depth in; depth + bool validity out
+    ds_bound = bound(ds_bytes, coarse_px * 8)  # 4 adds, 4 compares, a divide per output
+    emit("timing_downsample", batch=chunk, shape=list(d512.shape), levels=num_levels, kernel_ms=ds_k,
+         plain_ms=ds_p, bytes=ds_bytes, bound_ms=ds_bound[0], kernel_GBps=ds_bytes / ds_k / 1e6, card=card)
+
     kernel_ms, plain_ms, per_level = 0.0, 0.0, []
+    level_bytes, level_flops = 0, 0
+    gn_work = {"gn_associate_reduce": [0, 0], "gn_reduce_fixed": [0, 0]}  # bytes, flops
     gn_ms = {"gn_associate_reduce": [0.0, 0.0], "gn_reduce_fixed": [0.0, 0.0]}
     gn_levels = []
     T512 = truth_big[:chunk].contiguous()
@@ -431,6 +603,7 @@ def main() -> None:
                      lambda d=d, li=li: level_kernel.build_level_packed(d, li), 3, 20)
         kernel_ms, plain_ms = kernel_ms + k, plain_ms + p
         bytes_moved = d.numel() * 4 * 5  # 4 B of depth in, 16 B of plane table out
+        level_bytes, level_flops = level_bytes + bytes_moved, level_flops + d.numel() * 60
         per_level.append({"shape": list(d.shape), "kernel_ms": k, "plain_ms": p,
                           "kernel_GBps": bytes_moved / k / 1e6})
 
@@ -445,6 +618,16 @@ def main() -> None:
         for name, (k_, p_) in (("gn_associate_reduce", (ka, pa)), ("gn_reduce_fixed", (kf, pf))):
             gn_ms[name][0] += k_
             gn_ms[name][1] += p_
+        # Bytes each reads once and writes once: T, the points and their
+        # flags, the 16-byte plane entry of each valid point (associate) or
+        # its stored plane (fixed), the outputs; ~110 / ~80 f32 operations
+        # per valid point.
+        n_pts, n_ok, n_aok = ok.numel(), int(ok.sum().item()), int(aok.sum().item())
+        per_pair = chunk * (64 + gn_step.SYSTEM_SIZE * 4)
+        gn_work["gn_associate_reduce"][0] += per_pair + n_pts * (12 + 1 + 12 + 4 + 1) + n_ok * 16
+        gn_work["gn_associate_reduce"][1] += n_ok * 110
+        gn_work["gn_reduce_fixed"][0] += per_pair + n_pts * (12 + 12 + 4 + 1)
+        gn_work["gn_reduce_fixed"][1] += n_aok * 80
         gn_levels.append({"shape": [chunk, *packed.shape[-2:]], "points": count,
                           "associate_ms": ka, "associate_plain_ms": pa, "fixed_ms": kf, "fixed_plain_ms": pf})
     emit("timing_kernel", batch=chunk, levels=per_level, kernel_ms_total=kernel_ms,
@@ -475,12 +658,19 @@ def main() -> None:
 
     for name, n in main_launches.items():
         check(n > 0, f"the main paths never launched {name}")
-    errs = {"build_level_packed": max_err, **gn_err}
-    times = {"build_level_packed": (kernel_ms, plain_ms), **{k: tuple(v) for k, v in gn_ms.items()}}
+    errs = {"downsample_levels": ds_worst["abs"], "build_level_packed": max_err, **gn_err}
+    times = {"downsample_levels": (ds_k, ds_p), "build_level_packed": (kernel_ms, plain_ms),
+             **{k: tuple(v) for k, v in gn_ms.items()}}
+    bounds = {"downsample_levels": ds_bound, "build_level_packed": bound(level_bytes, level_flops),
+              **{k: bound(*v) for k, v in gn_work.items()}}
+    # No single PyTorch call computes any of these functions (a
+    # validity-aware mean over several levels, a plane table, a gated GNC
+    # normal-equation reduction), so library_ms is null throughout.
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": main_launches[name], "max_abs_err": errs[name],
-         "ms": times[name][0], "plain_ms": times[name][1]}
+         "ms": times[name][0], "plain_ms": times[name][1],
+         "bound_ms": bounds[name][0], "bound_by": bounds[name][1], "library_ms": None}
         for name, (source, replaces) in KERNELS.items()
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,1 +1,1 @@
-"""Registration: projective point-to-plane ICP."""
+"""Registration: projective point-to-plane ICP, Kabsch and GNC-ICP."""

@@ -19,8 +19,8 @@ from typing import NamedTuple, Sequence
 import torch
 
 from realsensetracker_tpu_torch.geometry import camera, se3
-from realsensetracker_tpu_torch.kernels import gn_step
-from realsensetracker_tpu_torch.ops.pyramid import PyramidLevel, build_pyramid, downsample_depth
+from realsensetracker_tpu_torch.kernels import downsample, gn_step
+from realsensetracker_tpu_torch.ops.pyramid import PyramidLevel, build_pyramid
 
 
 class ProjectiveIcpConfig(NamedTuple):
@@ -345,10 +345,9 @@ def register_depth_pair(
     src_depth = src_depth.to(torch.float32)
     valid = camera.valid_mask(src_depth, cfg.min_depth, cfg.max_depth)
     d = torch.where(valid, src_depth, 0.0)
-    samples = []
-    for li in range(num_levels):
-        samples.append(
-            sample_depth_points(d, intrs[li], _level_samples(cfg, li), cfg.min_depth, cfg.max_depth)
-        )
-        d, valid = downsample_depth(d, valid)
+    depths = [d] + [dl for dl, _ in downsample.downsample_levels(d, num_levels, cfg.min_depth)]
+    samples = [
+        sample_depth_points(dl, intrs[li], _level_samples(cfg, li), cfg.min_depth, cfg.max_depth)
+        for li, dl in enumerate(depths)
+    ]
     return projective_icp_sampled(samples, dst_levels, tuple(intrs), init_transform, cfg)

@@ -1,26 +1,30 @@
 """Public tracking facade: frames in -> poses out.
 
-Port of realsensetracker_tpu/api/tracker.py for methods "projective" and
-"keyframe". The other methods raise NotImplementedError naming the ROADMAP
-item that ports them.
+Port of realsensetracker_tpu/api/tracker.py for methods "projective"
+(with the world map when ``map_capacity > 0``), "keyframe", "model"
+(frame-to-model) and "icp" (the cloud tracker). The other methods raise
+NotImplementedError naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from realsensetracker_tpu_torch import device as device_mod
+from realsensetracker_tpu_torch.align import icp as icp_mod
 from realsensetracker_tpu_torch.api.config import TrackerConfig
 from realsensetracker_tpu_torch.data.depth_units import to_meters_np
+from realsensetracker_tpu_torch.geometry import se3
 from realsensetracker_tpu_torch.ops.pyramid import depth_to_meters
-from realsensetracker_tpu_torch.tracking.frame_to_frame import FrameToFrameTracker
+from realsensetracker_tpu_torch.tracking.frame_to_frame import FrameResult, FrameToFrameTracker
+from realsensetracker_tpu_torch.tracking.frame_to_model import FrameToModelTracker, frame_cloud
 from realsensetracker_tpu_torch.tracking.keyframe import KeyframeTracker
 from realsensetracker_tpu_torch.tracking.trajectory import Trajectory
 
 # Methods of the JAX facade and the ROADMAP queue 1 item that ports each.
 _NOT_PORTED = {
-    "model": "item 6 (tracking/frame_to_model)",
-    "icp": "items 6-7 (the _CloudTracker methods, align/icp)",
-    "gicp": "items 6-7 (the _CloudTracker methods, align/gicp)",
+    "gicp": "item 7 (align/gicp, the GICP half of the _CloudTracker)",
     "rgbd": "item 8 (align/rgbd, tracking/rgbd)",
     "tsdf": "item 10 (mapping/tsdf, tracking/tsdf_tracker)",
 }
@@ -46,6 +50,7 @@ class Tracker:
                 self.config.projective,
                 min_inlier_fraction=self.config.min_inlier_fraction,
                 map_capacity=self.config.map_capacity,
+                map_voxel_size=self.config.map_voxel_size,
                 device=self.config.device,
             )
         elif method == "keyframe":
@@ -56,13 +61,25 @@ class Tracker:
                 depth_scale=self.config.depth_scale,
                 device=self.config.device,
             )
+        elif method == "model":
+            kw = {"model_capacity": self.config.map_capacity} if self.config.map_capacity else {}
+            self._impl = FrameToModelTracker(
+                self.config.intrinsics,
+                voxel_size=self.config.map_voxel_size,
+                icp_max_iter=self.config.align.icp_max_iter,
+                device=self.config.device,
+                **kw,
+            )
+        elif method == "icp":
+            self._impl = _CloudTracker(self.config)
         else:
             raise ValueError(f"unknown tracking method: {method}")
 
     def _ingest(self, depth):
         """Integer (raw unit) frames -> f32 meters by config.depth_scale,
-        unless the impl declares ``accepts_raw_depth`` (KeyframeTracker):
-        then the raw frame passes through and converts on the device."""
+        on the host for host frames, unless the impl declares
+        ``accepts_raw_depth`` (KeyframeTracker): then the raw frame passes
+        through and converts on the device."""
         if getattr(self._impl, "accepts_raw_depth", False):
             return depth
         if isinstance(depth, torch.Tensor):
@@ -71,7 +88,7 @@ class Tracker:
 
     def process(self, depth, timestamp: float | None = None):
         """One (H, W) depth frame (float meters or integer raw units) in ->
-        FrameResult (projective) or KeyframeResult (keyframe) out."""
+        KeyframeResult (keyframe) or FrameResult (the other methods) out."""
         return self._impl.process(self._ingest(depth), timestamp)
 
     def process_window(self, depths, timestamps=None, window: int = 8):
@@ -106,5 +123,80 @@ class Tracker:
     def trajectory(self) -> Trajectory:
         return self._impl.trajectory
 
+    @property
+    def world_map(self):
+        """The MapAccumulator of 'projective' with map_capacity > 0 and of
+        'model'; None for the other methods."""
+        return getattr(self._impl, "world_map", None)
+
     def save_trajectory(self, path: str) -> None:
         self.trajectory.save_tum(path)
+
+
+def _cloud_step(depth, prev, pose, *, intr, voxel_size, capacity, icp_max_iter):
+    """One cloud-tracker frame (unproject + voxel downsample + GNC-ICP onto
+    the previous cloud + pose composition): (curr_cloud, new_pose (4,4),
+    relative (4,4), stats (18,)) with stats = [cost, ok, new_pose(16)], all
+    on the device."""
+    curr = frame_cloud(depth, intr, voxel_size, capacity)
+    out = icp_mod.align_icp(curr, prev, icp_max_iter)
+    rel = out.transform
+    ok = torch.isfinite(rel).all() & out.success
+    # accumulate = compose + SE(3) projection: a raw compose would let f32
+    # rotation drift grow without bound over a long stream.
+    new_pose = torch.where(ok, se3.accumulate(pose, rel), pose)
+    stats = torch.cat([torch.stack([out.mean_cost, ok.to(torch.float32)]), new_pose.reshape(-1)])
+    return curr, new_pose, rel, stats
+
+
+class _CloudTracker:
+    """The reference replay loop (rs_replay_app.cpp:244-273) on
+    voxel-downsampled clouds: each frame GNC-ICPs onto the previous frame's
+    cloud; a failure keeps the pose and the previous cloud. One host
+    transfer per frame. The cloud is the JAX facade's
+    ``_fused_depth_to_cloud``: the valid pixels of a one-level source
+    pyramid are exactly frame_cloud's."""
+
+    def __init__(self, config: TrackerConfig):
+        if config.method != "icp":
+            raise ValueError(f"the ported cloud tracker runs method='icp', not {config.method!r}")
+        self.config = config
+        self.device = device_mod.resolve(config.device)
+        self._prev = None
+        self._pose = None
+        self._pose_np = None
+        self._index = 0
+        self.trajectory = Trajectory()
+
+    @property
+    def pose(self):
+        return self._pose_np
+
+    def process(self, depth, timestamp: float | None = None) -> FrameResult:
+        cfg = self.config
+        depth = torch.as_tensor(depth, device=self.device)
+        if timestamp is None:
+            timestamp = float(self._index)
+        if self._prev is None:
+            self._pose = se3.identity(device=self.device)
+            self._pose_np = np.eye(4, dtype=np.float32)
+            self._prev = frame_cloud(depth, cfg.intrinsics, cfg.align.voxel_size, cfg.align.cloud_capacity)
+            self.trajectory.append(timestamp, self._pose_np)
+            res = FrameResult(self._pose_np, se3.identity(device=self.device), True, 0.0, 1.0, self._index)
+            self._index += 1
+            return res
+
+        curr, new_pose, rel, stats = _cloud_step(
+            depth, self._prev, self._pose, intr=cfg.intrinsics, voxel_size=cfg.align.voxel_size,
+            capacity=cfg.align.cloud_capacity, icp_max_iter=cfg.align.icp_max_iter,
+        )
+        s = stats.cpu().numpy()  # the frame's one host transfer
+        cost, ok = float(s[0]), bool(s[1] > 0.5)
+        if ok:
+            self._pose = new_pose
+            self._pose_np = s[2:18].reshape(4, 4)
+            self._prev = curr
+        self.trajectory.append(timestamp, self._pose_np)
+        res = FrameResult(self._pose_np, rel, ok, cost, 1.0 if ok else 0.0, self._index)
+        self._index += 1
+        return res

@@ -10,6 +10,7 @@ from __future__ import annotations
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 
@@ -57,18 +58,52 @@ TUM_FR1 = Intrinsics(fx=517.3, fy=516.5, cx=318.6, cy=255.3, width=640, height=4
 TUM_DEFAULT = Intrinsics(fx=525.0, fy=525.0, cx=319.5, cy=239.5, width=640, height=480)
 
 
-def unproject_depth(depth: torch.Tensor, intr: Intrinsics) -> torch.Tensor:
-    """Depth image (..., H, W) -> vertex map (..., H, W, 3) in camera frame.
+def reciprocal(s: float) -> float:
+    """1 / s rounded to f32, as a Python float: ``x * reciprocal(s)`` is
+    x / s as compiled JAX computes it (XLA folds a division by a constant
+    into a multiply by its f32 reciprocal), and as torch on CUDA does for a
+    Python divisor. The cloud paths (voxel keys, the points they key) scale
+    this way, so their keys agree bit for bit with the JAX package's
+    compiled trackers, on the CPU and on the card."""
+    return float(np.float32(1.0) / np.float32(s))
 
-    Invalid depths (<= 0 or non-finite) yield zero vertices.
-    """
+
+def _scaled_offsets(depth: torch.Tensor, intr: Intrinsics):
+    """(d, d (u - cx), d (v - cy)) with invalid depths (<= 0 or
+    non-finite) zeroed."""
     h, w = depth.shape[-2], depth.shape[-1]
     u = torch.arange(w, dtype=depth.dtype, device=depth.device)
     v = torch.arange(h, dtype=depth.dtype, device=depth.device)[:, None]
     d = torch.where(torch.isfinite(depth) & (depth > 0), depth, 0.0)
-    x = d * (u - intr.cx) / intr.fx
-    y = d * (v - intr.cy) / intr.fy
-    return torch.stack([x, y, d], dim=-1)
+    return d, d * (u - intr.cx), d * (v - intr.cy)
+
+
+def unproject_depth(depth: torch.Tensor, intr: Intrinsics) -> torch.Tensor:
+    """Depth image (..., H, W) -> vertex map (..., H, W, 3) in camera frame.
+
+    Invalid depths (<= 0 or non-finite) yield zero vertices. x and y divide
+    by fx and fy, as the JAX package's pyramid and level kernel do: the
+    pyramid's vertex maps are held to JAX's bit for bit
+    (tests/test_torch_pyramid.py::test_build_pyramid_matches_jax,
+    tests/test_torch_downsample.py::test_build_pyramid_coarse_levels_match_jax),
+    and a multiply by the reciprocal misses them by an ulp at 18% of the
+    pixels. On the card the level kernel divides the same way.
+    """
+    d, xu, yv = _scaled_offsets(depth, intr)
+    return torch.stack([xu / intr.fx, yv / intr.fy, d], dim=-1)
+
+
+def unproject_depth_compiled(depth: torch.Tensor, intr: Intrinsics) -> torch.Tensor:
+    """unproject_depth rounded as the JAX package's compiled trackers round
+    it, x = d (u - cx) * (1 / fx) (see reciprocal), on every device.
+
+    The voxel world model keys the points it is given: a point on a voxel
+    face (the synthetic floor and wall put whole rows there) takes the key
+    its last ulp picks, so map points unproject this way on the CPU and on
+    the card alike.
+    """
+    d, xu, yv = _scaled_offsets(depth, intr)
+    return torch.stack([xu * reciprocal(intr.fx), yv * reciprocal(intr.fy), d], dim=-1)
 
 
 def valid_mask(

@@ -3,18 +3,27 @@
 The system has no weights: what a user carries is configuration and
 tracker state. These functions read the JAX objects' NamedTuple fields and
 arrays through numpy, so this module imports neither JAX nor
-realsensetracker_tpu.
+realsensetracker_tpu. Trackers land on ``device``, the card unless the
+caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
+from realsensetracker_tpu_torch import device as device_mod
 from realsensetracker_tpu_torch.align.projective import ProjectiveIcpConfig
+from realsensetracker_tpu_torch.api.config import AlignConfig, TrackerConfig
+from realsensetracker_tpu_torch.api.tracker import _CloudTracker
 from realsensetracker_tpu_torch.geometry.camera import Intrinsics
+from realsensetracker_tpu_torch.ops.cloud import Cloud
 from realsensetracker_tpu_torch.ops.pyramid import PyramidLevel
+from realsensetracker_tpu_torch.tracking.accumulator import MapAccumulator
 from realsensetracker_tpu_torch.tracking.frame_to_frame import FrameToFrameTracker
+from realsensetracker_tpu_torch.tracking.frame_to_model import FrameToModelTracker
 from realsensetracker_tpu_torch.tracking.keyframe import KeyframeTracker
 from realsensetracker_tpu_torch.tracking.trajectory import Trajectory
 
@@ -32,28 +41,62 @@ def icp_config_from_jax(cfg) -> ProjectiveIcpConfig:
     return ProjectiveIcpConfig(**fields)
 
 
+def align_config_from_jax(cfg) -> AlignConfig:
+    return AlignConfig(**{f.name: getattr(cfg, f.name) for f in dataclasses.fields(AlignConfig)})
+
+
+def tracker_config_from_jax(cfg, device=device_mod.DEFAULT) -> TrackerConfig:
+    """The fields of a JAX TrackerConfig that the port reads."""
+    return TrackerConfig(
+        intrinsics=intrinsics_from_jax(cfg.intrinsics),
+        method=cfg.method,
+        projective=icp_config_from_jax(cfg.projective),
+        align=align_config_from_jax(cfg.align),
+        min_inlier_fraction=float(cfg.min_inlier_fraction),
+        map_capacity=int(cfg.map_capacity),
+        map_voxel_size=float(cfg.map_voxel_size),
+        depth_scale=float(cfg.depth_scale),
+        device=str(device),
+    )
+
+
 def _tensor(a, device) -> torch.Tensor:
     a = np.asarray(a)
     if np.issubdtype(a.dtype, np.floating):
         a = a.astype(np.float32)
-    return torch.tensor(a, device=device)
+    return torch.tensor(a, device=device_mod.resolve(device))
 
 
-def pyramid_levels_from_numpy(levels, device="cpu") -> list[PyramidLevel]:
+def cloud_from_jax(cloud, device=device_mod.DEFAULT) -> Cloud:
+    return Cloud(_tensor(cloud.points, device), _tensor(cloud.mask, device))
+
+
+def map_from_jax(acc, device=device_mod.DEFAULT) -> MapAccumulator:
+    """A JAX MapAccumulator (points f32, keys int32, mask) -> the port's."""
+    return MapAccumulator(_tensor(acc.points, device), _tensor(acc.keys, device), _tensor(acc.mask, device))
+
+
+def pyramid_levels_from_numpy(levels, device=device_mod.DEFAULT) -> list[PyramidLevel]:
     """JAX PyramidLevels of one frame -> port PyramidLevels with B = 1."""
+    device = device_mod.resolve(device)
     return [PyramidLevel(*(_tensor(a, device)[None] for a in lvl)) for lvl in levels]
 
 
-def frame_to_frame_state_from_jax(jax_tracker, device="cpu") -> FrameToFrameTracker:
+def frame_to_frame_state_from_jax(jax_tracker, device=device_mod.DEFAULT) -> FrameToFrameTracker:
     """A port FrameToFrameTracker that continues the JAX tracker's stream:
-    same pose, reference pyramid, frame index, trajectory and fitted cfg."""
+    same pose, reference pyramid, world map, frame index, trajectory and
+    fitted cfg."""
     tracker = FrameToFrameTracker(
         intrinsics_from_jax(jax_tracker.intr),
         icp_config_from_jax(jax_tracker.cfg),
         min_inlier_fraction=float(jax_tracker.min_inlier_fraction),
         map_capacity=int(jax_tracker.map_capacity),
+        map_voxel_size=float(jax_tracker.map_voxel_size),
+        map_points_per_frame=int(jax_tracker.map_points_per_frame),
         device=device,
     )
+    if jax_tracker._map is not None:
+        tracker._map = map_from_jax(jax_tracker._map, device)
     if jax_tracker._prev_levels is not None:
         tracker._prev_levels = tuple(pyramid_levels_from_numpy(jax_tracker._prev_levels, device))
         tracker._pose = _tensor(jax_tracker._pose, device)
@@ -67,7 +110,42 @@ def _trajectory(traj) -> Trajectory:
     return Trajectory(list(traj.timestamps), [np.array(p, dtype=np.float64) for p in traj.poses])
 
 
-def keyframe_state_from_jax(jax_tracker, device="cpu") -> KeyframeTracker:
+def frame_to_model_state_from_jax(jax_tracker, device=device_mod.DEFAULT) -> FrameToModelTracker:
+    """A port FrameToModelTracker that continues the JAX tracker's stream:
+    same settings, model, pose, frame index and trajectory."""
+    tracker = FrameToModelTracker(
+        intrinsics_from_jax(jax_tracker.intr),
+        voxel_size=float(jax_tracker.voxel_size),
+        icp_max_iter=int(jax_tracker.icp_max_iter),
+        frame_capacity=int(jax_tracker.frame_capacity),
+        model_capacity=int(jax_tracker.model_capacity),
+        max_mean_cost=float(jax_tracker.max_mean_cost),
+        device=device,
+    )
+    if jax_tracker._model is not None:
+        tracker._model = map_from_jax(jax_tracker._model, device)
+        tracker._pose = _tensor(jax_tracker._pose, device)
+        tracker._pose_np = np.asarray(jax_tracker._pose_np, dtype=np.float32)
+    tracker._index = int(jax_tracker._index)
+    tracker.trajectory = _trajectory(jax_tracker.trajectory)
+    return tracker
+
+
+def cloud_tracker_state_from_jax(jax_tracker, device=device_mod.DEFAULT) -> _CloudTracker:
+    """A port cloud tracker (the ``Tracker(method="icp")`` backend) that
+    continues the JAX facade's ``_CloudTracker``: same config, previous
+    cloud, pose, frame index and trajectory."""
+    tracker = _CloudTracker(tracker_config_from_jax(jax_tracker.config, device))
+    if jax_tracker._prev is not None:
+        tracker._prev = cloud_from_jax(jax_tracker._prev, device)
+        tracker._pose = _tensor(jax_tracker._pose, device)
+        tracker._pose_np = np.asarray(jax_tracker._pose_np, dtype=np.float32)
+    tracker._index = int(jax_tracker._index)
+    tracker.trajectory = _trajectory(jax_tracker.trajectory)
+    return tracker
+
+
+def keyframe_state_from_jax(jax_tracker, device=device_mod.DEFAULT) -> KeyframeTracker:
     """A port KeyframeTracker that continues the JAX KeyframeTracker's
     stream: same thresholds, depth_scale, fitted cfg, keyframe pyramid and
     pose, pose, failure bookkeeping, frame index and trajectory."""

@@ -1,5 +1,7 @@
 """Hand-written CUDA kernels for the hot path, each beside its plain torch version.
 
+* downsample: every coarse level of a depth pyramid (2x2 validity-aware
+  mean, floor dims) from one launch.
 * level_kernel: fused depth -> plane table [n | d = n.q] for one pyramid
   level (the destination-frame preprocessing of projective ICP).
 * gn_step: fused Gauss-Newton step -- projective association into the

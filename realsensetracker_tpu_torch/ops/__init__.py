@@ -1,1 +1,2 @@
-"""Dense image-grid ops: grid normals and the depth pyramid."""
+"""Dense image-grid ops (grid normals, the depth pyramid) and sparse cloud
+ops (masked clouds, voxel downsample, nearest neighbours)."""

@@ -3,7 +3,8 @@
 Port of realsensetracker_tpu/ops/pyramid.py, batched over a leading B:
 every level's tensors carry the batch first. The destination role builds
 the planar (B, 4, H, W) plane table [n | d = n . q] that projective ICP
-gathers from, with the CUDA level kernel for CUDA tensors.
+gathers from. For CUDA tensors one launch of the downsample kernel makes
+every coarse level's depth and the level kernel builds each table.
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ from typing import NamedTuple
 import torch
 
 from realsensetracker_tpu_torch.geometry import camera
-from realsensetracker_tpu_torch.kernels import level_kernel
+from realsensetracker_tpu_torch.kernels import downsample, level_kernel
 
 
 class PyramidLevel(NamedTuple):
@@ -26,13 +27,20 @@ class PyramidLevel(NamedTuple):
 
 def downsample_depth(depth: torch.Tensor, valid: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """2x2 validity-aware mean pooling of (..., H, W); a trailing odd
-    row/column is dropped (floor), as Intrinsics.halved() assumes."""
+    row/column is dropped (floor), as Intrinsics.halved() assumes.
+
+    The four children are summed in a fixed order, row pairs first:
+    (a00 + a01) + (a10 + a11), the order torch's sum over the two dims
+    takes on the CPU, written out so that the CUDA kernel can repeat it bit
+    for bit. XLA's CPU reduce takes this order at power-of-two widths and
+    ((a00 + a01) + a10) + a11 elsewhere, up to an ulp away."""
     h, w = depth.shape[-2] // 2 * 2, depth.shape[-1] // 2 * 2
     lead = depth.shape[:-2]
     d = depth[..., :h, :w].reshape(*lead, h // 2, 2, w // 2, 2)
     m = valid[..., :h, :w].reshape(*lead, h // 2, 2, w // 2, 2)
     cnt = m.sum(dim=(-3, -1))
-    s = torch.where(m, d, 0.0).sum(dim=(-3, -1))
+    a = torch.where(m, d, 0.0)
+    s = (a[..., 0, :, 0] + a[..., 0, :, 1]) + (a[..., 1, :, 0] + a[..., 1, :, 1])
     out_valid = cnt > 0
     out = torch.where(out_valid, s / torch.clamp(cnt, min=1), 0.0)
     return out, out_valid
@@ -76,9 +84,11 @@ def build_pyramid(
     """Depth batch (B, H, W) -> list of levels, fine to coarse.
 
     with_normals=False builds a SOURCE-role pyramid (no normals, zero
-    plane table). use_kernel: 'auto' runs the CUDA level kernel for CUDA
-    tensors and the plain torch version for CPU tensors; True forces the
-    kernel (a CPU tensor raises), False the plain version.
+    plane table). use_kernel: 'auto' runs the CUDA kernels (the coarse
+    levels' downsample, one launch, and the level builder) for CUDA
+    tensors and their plain torch versions for CPU tensors; True forces the
+    kernels (a CPU tensor raises), False the plain versions. min_depth must
+    be >= 0 (the downsample reads validity as depth > 0).
     """
     if depth.dim() != 3:
         raise ValueError(f"depth must be (B, H, W), got shape {tuple(depth.shape)}")
@@ -86,12 +96,20 @@ def build_pyramid(
     build_level = (
         level_kernel.build_level_packed if kernel else level_kernel.build_level_packed_reference
     )
+    if min_depth < 0:
+        raise ValueError(f"min_depth {min_depth} < 0: the pyramid reads validity as depth > 0")
     depth = depth.to(torch.float32)
     valid = camera.valid_mask(depth, min_depth, max_depth)
-    d = torch.where(valid, depth, 0.0)  # the kernel takes MASKED depth
+    d = torch.where(valid, depth, 0.0)  # the kernels take MASKED depth
+    if kernel:
+        coarse = downsample.downsample_levels(d, num_levels, min_depth)
+    else:
+        coarse = downsample.downsample_levels_reference(d, num_levels)
     levels: list[PyramidLevel] = []
     intrs = list(level_intrinsics(intr, num_levels))
-    for cur_intr in intrs:
+    for li, cur_intr in enumerate(intrs):
+        if li:
+            d, valid = coarse[li - 1]
         vmap = camera.unproject_depth(d, cur_intr)
         if with_normals:
             packed = build_level(d, cur_intr)
@@ -110,5 +128,4 @@ def build_pyramid(
                 packed=packed,
             )
         )
-        d, valid = downsample_depth(d, valid)
     return levels, intrs

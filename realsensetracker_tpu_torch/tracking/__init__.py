@@ -2,4 +2,5 @@
 
 from realsensetracker_tpu_torch.tracking.trajectory import Trajectory  # noqa: F401
 from realsensetracker_tpu_torch.tracking.frame_to_frame import FrameToFrameTracker  # noqa: F401
+from realsensetracker_tpu_torch.tracking.frame_to_model import FrameToModelTracker  # noqa: F401
 from realsensetracker_tpu_torch.tracking.keyframe import KeyframeTracker  # noqa: F401

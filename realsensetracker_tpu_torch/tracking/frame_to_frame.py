@@ -1,10 +1,11 @@
 """Frame-to-frame visual odometry driver (BASELINE config 2).
 
-Port of realsensetracker_tpu/tracking/frame_to_frame.py without the world
-model: per frame, register the current depth frame against the previous
-one, compose the result into the global pose, and keep the old reference
-frame on failure. Each frame costs one device-to-host transfer (the
-packed stats), as in the JAX version.
+Port of realsensetracker_tpu/tracking/frame_to_frame.py: per frame,
+register the current depth frame against the previous one, compose the
+result into the global pose, feed the world model (``map_capacity > 0``),
+and keep the old reference frame on failure. Each frame costs one
+device-to-host transfer (the packed stats), as in the JAX version; the map
+insert stays on the device.
 """
 
 from __future__ import annotations
@@ -15,9 +16,12 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from realsensetracker_tpu_torch import device as device_mod
 from realsensetracker_tpu_torch.align import projective
 from realsensetracker_tpu_torch.geometry import camera, se3
+from realsensetracker_tpu_torch.ops.cloud import Cloud
 from realsensetracker_tpu_torch.ops.pyramid import build_pyramid
+from realsensetracker_tpu_torch.tracking import accumulator as acc_mod
 from realsensetracker_tpu_torch.tracking.trajectory import Trajectory
 
 
@@ -49,22 +53,20 @@ class FrameToFrameTracker:
     intr: camera.Intrinsics
     cfg: projective.ProjectiveIcpConfig = projective.ProjectiveIcpConfig()
     min_inlier_fraction: float = 0.2  # tracking-failure gate
-    map_capacity: int = 0  # 0 disables the world model (the only mode ported)
-    device: str | torch.device = "cpu"
+    map_capacity: int = 0  # 0 disables the world model
+    map_voxel_size: float = 0.05
+    map_points_per_frame: int = 4096
+    device: str | torch.device = device_mod.DEFAULT
 
     _prev_levels: object = field(default=None, repr=False)
     _pose: object = field(default=None, repr=False)  # device copy
     _pose_np: object = field(default=None, repr=False)  # host mirror
+    _map: object = field(default=None, repr=False)
     _index: int = 0
     trajectory: Trajectory = field(default_factory=Trajectory)
 
     def __post_init__(self):
-        if self.map_capacity:
-            raise NotImplementedError(
-                "map_capacity > 0 needs the world-model accumulator, not ported yet "
-                "(ROADMAP queue 1 item 6: ops/cloud, ops/voxel, tracking/accumulator)"
-            )
-        self.device = torch.device(self.device)
+        self.device = device_mod.resolve(self.device)
         # Resolution-aware schedule: drop unusable coarse levels.
         self.cfg = projective.fit_levels(self.cfg, int(self.intr.height), int(self.intr.width))
 
@@ -72,12 +74,17 @@ class FrameToFrameTracker:
         self._prev_levels = None
         self._pose = None
         self._pose_np = None
+        self._map = None
         self._index = 0
         self.trajectory = Trajectory()
 
     @property
     def pose(self):
         return self._pose_np
+
+    @property
+    def world_map(self):
+        return self._map
 
     def process(self, depth, timestamp: float | None = None) -> FrameResult:
         depth = torch.as_tensor(depth, device=self.device)
@@ -91,6 +98,9 @@ class FrameToFrameTracker:
             self._pose = se3.identity(device=self.device)
             self._pose_np = np.eye(4, dtype=np.float32)
             self._prev_levels = tuple(levels)
+            if self.map_capacity:
+                self._map = acc_mod.init_map(self.map_capacity, self.device)
+                self._insert(self._prev_levels)
             self.trajectory.append(timestamp, self._pose_np)
             res = FrameResult(self._pose_np, se3.identity(device=self.device), True, 0.0, 1.0, self._index)
             self._index += 1
@@ -107,8 +117,20 @@ class FrameToFrameTracker:
             self._pose = new_pose
             self._pose_np = s[3:19].reshape(4, 4)
             self._prev_levels = levels
+            if self.map_capacity:
+                self._insert(levels)
         # On failure: hold the pose AND keep the previous reference frame.
         self.trajectory.append(timestamp, self._pose_np)
         res = FrameResult(self._pose_np, relative, success, rmse, inlier, self._index)
         self._index += 1
         return res
+
+    def _insert(self, levels) -> None:
+        """Add a stride sample of the frame's finest level to the map at the
+        current pose. Its points unproject again from their depths as the
+        JAX tracker's compiled insert rounds them
+        (camera.unproject_depth_compiled): the same keys on every device."""
+        level = levels[0]
+        verts = camera.unproject_depth_compiled(level.vertex_map[..., 2], self.intr)
+        pts, _, ok = projective.sample_level(level._replace(vertex_map=verts), self.map_points_per_frame)
+        self._map = acc_mod.add_cloud(self._map, self._pose, Cloud(pts[0], ok[0]), self.map_voxel_size)

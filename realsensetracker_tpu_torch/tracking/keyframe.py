@@ -22,6 +22,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from realsensetracker_tpu_torch import device as device_mod
 from realsensetracker_tpu_torch.align import projective
 from realsensetracker_tpu_torch.geometry import camera, se3
 from realsensetracker_tpu_torch.ops.pyramid import PyramidLevel, build_pyramid, depth_to_meters
@@ -155,7 +156,7 @@ class KeyframeTracker:
     max_consecutive_failures: int = 5
     # Meters per raw unit for INTEGER depth frames; float frames are meters.
     depth_scale: float = 1e-3
-    device: str | torch.device = "cpu"
+    device: str | torch.device = device_mod.DEFAULT
 
     _fail_streak: int = 0
     # Failed frames since the previous keyframe, snapshotted into
@@ -174,7 +175,7 @@ class KeyframeTracker:
     trajectory: Trajectory = field(default_factory=Trajectory)
 
     def __post_init__(self):
-        self.device = torch.device(self.device)
+        self.device = device_mod.resolve(self.device)
         # Resolution-aware schedule: drop coarse levels below ~24 px.
         self.cfg = projective.fit_levels(self.cfg, int(self.intr.height), int(self.intr.width))
 

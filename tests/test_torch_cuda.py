@@ -4,13 +4,17 @@ a machine with a card and no JAX, without the suite's conftest:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
-The level kernel is held against its plain torch version at atol 2e-5
-with the validity pattern exact; the GN-step kernels against theirs with at
+The downsample kernel is held against its plain torch version bit for bit
+(both sum the children in one order and divide exactly); the level kernel
+against its plain torch version at atol 2e-5 with the validity pattern
+exact; the GN-step kernels against theirs with at
 most 0.1% of the associations flipped (a ulp in the point transform can
 move a point across a pixel's half-way line) and the systems, on the
 kernel's own association, to 1e-4 relative (H to max|H|, b to
 sqrt(max|H| wsse), f32 sums in another order); the CUDA paths against the
-same code on CPU.
+same code on CPU: registration and the projective trackers to 1e-4, the
+world map by count, the cloud trackers to 1e-3 (a near-tie nearest
+neighbour can go the other way in another summation order).
 """
 
 import numpy as np
@@ -21,7 +25,7 @@ from realsensetracker_tpu_torch.align import projective
 from realsensetracker_tpu_torch.api import Tracker, TrackerConfig
 from realsensetracker_tpu_torch.data import synthetic
 from realsensetracker_tpu_torch.geometry import camera, se3
-from realsensetracker_tpu_torch.kernels import gn_step, level_kernel
+from realsensetracker_tpu_torch.kernels import downsample, gn_step, level_kernel
 from realsensetracker_tpu_torch.ops import pyramid
 from realsensetracker_tpu_torch.parallel import batched
 from realsensetracker_tpu_torch.tracking.keyframe import KeyframeTracker
@@ -73,12 +77,35 @@ def test_kernel_matches_reference(cuda, shape):
     _assert_plane_tables(got, level_kernel.build_level_packed_reference(d, intr))
 
 
+@pytest.mark.parametrize("num_levels", [1, 2, 3, 4])
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_downsample_kernel_matches_reference(cuda, shape, num_levels):
+    d = _depths(_intr(*shape), 3, cuda)
+    before = downsample.LAUNCHES
+    got = downsample.downsample_levels(d, num_levels, min_depth=0.05)
+    torch.cuda.synchronize()
+    assert downsample.LAUNCHES == before + (num_levels > 1)  # L = 1 launches nothing
+    ref = downsample.downsample_levels_reference(d, num_levels)
+    assert len(got) == len(ref) == num_levels - 1
+    for (gd, gv), (rd, rv) in zip(got, ref):
+        assert torch.equal(gv, rv)
+        assert torch.equal(gd, rd)
+
+
+def test_downsample_kernel_chains_past_five_levels(cuda):
+    d = _depths(_intr(480, 640), 2, cuda)
+    got = downsample.downsample_levels(d, 8, min_depth=0.05)
+    for (gd, gv), (rd, rv) in zip(got, downsample.downsample_levels_reference(d, 8)):
+        assert torch.equal(gv, rv) and torch.equal(gd, rd)
+
+
 def test_pyramid_auto_uses_kernel(cuda):
     intr = _intr(120, 160)
     d = _depths(intr, 2, cuda)
-    before = level_kernel.LAUNCHES
+    before, ds_before = level_kernel.LAUNCHES, downsample.LAUNCHES
     got, _ = pyramid.build_pyramid(d, intr, 3)
     assert level_kernel.LAUNCHES == before + 3
+    assert downsample.LAUNCHES == ds_before + 1
     ref, _ = pyramid.build_pyramid(d, intr, 3, use_kernel=False)
     for g, r in zip(got, ref):
         _assert_plane_tables(g.packed, r.packed)
@@ -139,11 +166,12 @@ def _register_on_both(cuda, cfg):
     dst = synthetic.render_depth(intr, se3.identity(), sc)[None].expand(2, -1, -1).contiguous()
     src = torch.stack([synthetic.render_depth(intr, se3.exp(t), sc) for t in tw])
     ref = batched.register_batch(src, dst, intr, cfg)
-    before, gn_before = level_kernel.LAUNCHES, dict(gn_step.LAUNCHES)
+    before, gn_before, ds_before = level_kernel.LAUNCHES, dict(gn_step.LAUNCHES), downsample.LAUNCHES
     got = batched.register_batch(src.to(cuda), dst.to(cuda), intr, cfg)
     fitted = projective.fit_levels(cfg, 120, 160)
     pyramids = 2 if cfg.sample_mode == "normal_space" else 1  # + the source pyramid
     assert level_kernel.LAUNCHES == before + pyramids * len(fitted.iters)
+    assert downsample.LAUNCHES == ds_before + 2  # destination pyramid + source levels
     rounds = sum(fitted.iters)
     assert gn_step.LAUNCHES["gn_associate_reduce"] == gn_before["gn_associate_reduce"] + rounds
     assert gn_step.LAUNCHES["gn_reduce_fixed"] == gn_before["gn_reduce_fixed"] + rounds * (cfg.inner_iters - 1)
@@ -191,3 +219,39 @@ def test_keyframe_tracker_on_cuda_matches_cpu(cuda, window):
     for a, b in zip(*runs):
         assert a.success == b.success and a.is_new_keyframe == b.is_new_keyframe
         np.testing.assert_allclose(b.pose, a.pose, atol=1e-4)
+
+
+def _stream(intr, n, device="cpu"):
+    depths, _ = synthetic.render_trajectory(intr, n, seed=2)
+    return depths.to(device)
+
+
+def test_world_map_tracker_on_cuda_matches_cpu(cuda):
+    intr = _intr(90, 120)
+    depths = _stream(intr, 6)
+    runs = []
+    for device in ("cpu", cuda):
+        tracker = Tracker(TrackerConfig(intrinsics=intr, map_capacity=8192, device=str(device)))
+        poses = np.stack([tracker.process(d).pose for d in depths])
+        runs.append((poses, int(tracker.world_map.count()), tracker.world_map))
+    np.testing.assert_allclose(runs[1][0], runs[0][0], atol=1e-4)
+    assert abs(runs[1][1] - runs[0][1]) <= 0.01 * runs[0][1]
+    assert runs[1][2].points.is_cuda and runs[1][2].keys.dtype == torch.int32
+
+
+@pytest.mark.parametrize("method", ["model", "icp"])
+def test_cloud_trackers_on_cuda_match_cpu(cuda, method):
+    from realsensetracker_tpu_torch.api.config import AlignConfig
+
+    intr = _intr(90, 120)
+    depths = _stream(intr, 4)
+    runs = []
+    for device in ("cpu", cuda):
+        cfg = TrackerConfig(intrinsics=intr, method=method, align=AlignConfig(icp_max_iter=24, cloud_capacity=2048),
+                            map_capacity=4096 if method == "model" else 0, device=str(device))
+        tracker = Tracker(cfg)
+        res = [tracker.process(d) for d in depths]
+        assert all(r.success for r in res)
+        runs.append(np.stack([r.pose for r in res]))
+    np.testing.assert_allclose(runs[1], runs[0], atol=1e-3)
+

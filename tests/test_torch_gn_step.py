@@ -53,7 +53,7 @@ def _inputs(frames, level, samples, twist, dropout):
     for _ in range(level):
         masked, _ = jpyr.downsample_depth(masked, masked > 0)
     pts, ok = jproj.sample_depth_points(masked, jintrs[level], samples)
-    port_level = interop.pyramid_levels_from_numpy(jlevels)[level]
+    port_level = interop.pyramid_levels_from_numpy(jlevels, device="cpu")[level]
     T = se3.exp(torch.tensor(twist, dtype=torch.float32)).numpy()
     return jlevels[level], jintrs[level], pts, ok, port_level, T
 

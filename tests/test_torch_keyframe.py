@@ -94,7 +94,7 @@ def scenario():
 @pytest.mark.parametrize("name", list(SCENARIOS))
 def test_per_frame_matches_jax(scenario, name):
     depths, kw, ref = scenario[name]
-    got = _per_frame(KeyframeTracker(INTR, CFG, **kw), depths)
+    got = _per_frame(KeyframeTracker(INTR, CFG, device="cpu", **kw), depths)
     _assert_results_match(got, ref)
     if name == "promotions":
         assert sum(r.is_new_keyframe for r in ref[1:]) >= 2
@@ -106,8 +106,8 @@ def test_per_frame_matches_jax(scenario, name):
 @pytest.mark.parametrize("name", list(SCENARIOS))
 def test_window_matches_jax_and_per_frame(scenario, name, mode):
     depths, kw, ref = scenario[name]
-    per_frame = KeyframeTracker(INTR, CFG, **kw)
-    windowed = KeyframeTracker(INTR, CFG, **kw)
+    per_frame = KeyframeTracker(INTR, CFG, device="cpu", **kw)
+    windowed = KeyframeTracker(INTR, CFG, device="cpu", **kw)
     a = _per_frame(per_frame, depths)
     b = _windowed(windowed, depths, 4, mode)
     _assert_results_match(b, ref)
@@ -123,7 +123,7 @@ def test_window_matches_jax_and_per_frame(scenario, name, mode):
 
 def test_window_truncates_at_events(scenario):
     depths, kw, _ = scenario["promotions"]
-    tracker = KeyframeTracker(INTR, CFG, **kw)
+    tracker = KeyframeTracker(INTR, CFG, device="cpu", **kw)
     lens, i = [], 0
     while i < len(depths):
         res = tracker.process_window(depths[i : i + 4], pad_to=4, truncate_at_events=True)
@@ -136,8 +136,8 @@ def test_window_truncates_at_events(scenario):
 
 def test_padding_inert_without_events():
     depths = _sequence(4, step=(0.005, 0.0, 0.005, 0.0, 0.0, 0.0))
-    ref = KeyframeTracker(INTR, CFG)
-    win = KeyframeTracker(INTR, CFG)
+    ref = KeyframeTracker(INTR, CFG, device="cpu")
+    win = KeyframeTracker(INTR, CFG, device="cpu")
     a = _per_frame(ref, depths)
     win.process(depths[0], 0.0)
     res = win.process_window(depths[1:], [1.0, 2.0, 3.0], pad_to=8, truncate_at_events=False)
@@ -152,9 +152,9 @@ def test_uint16_matches_quantized_float_and_jax():
     raw = [np.asarray(d * 5000.0 + 0.5, np.uint16) for d in depths]
     quant = [r.astype(np.float32) * U16_SCALE for r in raw]
     ref = _per_frame(JKeyframeTracker(JINTR, JCFG, depth_scale=float(U16_SCALE), **PROMOTE), raw)
-    a = _per_frame(KeyframeTracker(INTR, CFG, **PROMOTE), quant)
-    b = _per_frame(KeyframeTracker(INTR, CFG, depth_scale=float(U16_SCALE), **PROMOTE), raw)
-    c = _windowed(KeyframeTracker(INTR, CFG, depth_scale=float(U16_SCALE), **PROMOTE), raw, 4, False)
+    a = _per_frame(KeyframeTracker(INTR, CFG, device="cpu", **PROMOTE), quant)
+    b = _per_frame(KeyframeTracker(INTR, CFG, device="cpu", depth_scale=float(U16_SCALE), **PROMOTE), raw)
+    c = _windowed(KeyframeTracker(INTR, CFG, device="cpu", depth_scale=float(U16_SCALE), **PROMOTE), raw, 4, False)
     assert sum(r.is_new_keyframe for r in a[1:]) >= 2
     _assert_same_stream(a, b)
     _assert_same_stream(a, c)
@@ -166,8 +166,8 @@ def test_mixed_window_converts_raw_frames():
     raw = [np.asarray(d * 5000.0 + 0.5, np.uint16) for d in depths]
     quant = [r.astype(np.float32) * U16_SCALE for r in raw]
     mixed = [raw[i] if i % 2 else quant[i] for i in range(5)]
-    a = _per_frame(KeyframeTracker(INTR, CFG), quant)
-    b = _windowed(KeyframeTracker(INTR, CFG, depth_scale=float(U16_SCALE)), mixed, 4, True)
+    a = _per_frame(KeyframeTracker(INTR, CFG, device="cpu"), quant)
+    b = _windowed(KeyframeTracker(INTR, CFG, device="cpu", depth_scale=float(U16_SCALE)), mixed, 4, True)
     _assert_same_stream(a, b)
 
 
@@ -187,7 +187,7 @@ def _drive_corrections(tracker, depths):
 def test_relocalize_and_world_correction_match_jax(scenario):
     depths, kw, _ = scenario["promotions"]
     ref = _drive_corrections(JKeyframeTracker(JINTR, JCFG, **kw), depths)
-    tracker = KeyframeTracker(INTR, CFG, **kw)
+    tracker = KeyframeTracker(INTR, CFG, device="cpu", **kw)
     got = _drive_corrections(tracker, depths)
     _assert_results_match(got, ref)
     assert len(tracker.trajectory) == len(depths)
@@ -195,7 +195,7 @@ def test_relocalize_and_world_correction_match_jax(scenario):
 
 def test_relocalize_after_window_rebuilds_the_keyframe(scenario):
     depths, kw, _ = scenario["promotions"]
-    a, b = KeyframeTracker(INTR, CFG, **kw), KeyframeTracker(INTR, CFG, **kw)
+    a, b = KeyframeTracker(INTR, CFG, device="cpu", **kw), KeyframeTracker(INTR, CFG, device="cpu", **kw)
     _per_frame(a, depths[:5])
     _windowed(b, depths[:5], 4, False)
     assert b._last_levels is None
@@ -215,7 +215,7 @@ def facade_reference(scenario):
 
 def test_tracker_process_window_matches_jax(scenario, facade_reference):
     depths = scenario["promotions"][0]
-    cfg = TrackerConfig(intrinsics=INTR, method="keyframe", projective=CFG)
+    cfg = TrackerConfig(intrinsics=INTR, device="cpu", method="keyframe", projective=CFG)
     per_frame, windowed = Tracker(cfg), Tracker(cfg)
     a = _per_frame(per_frame, depths)
     b = windowed.process_window(depths, [float(i) for i in range(len(depths))], window=4)
@@ -227,15 +227,15 @@ def test_tracker_process_window_matches_jax(scenario, facade_reference):
 
 def test_tracker_process_window_needs_keyframe_method(scenario):
     with pytest.raises(ValueError, match="keyframe"):
-        Tracker(TrackerConfig(intrinsics=INTR, method="projective")).process_window(scenario["promotions"][0])
+        Tracker(TrackerConfig(intrinsics=INTR, device="cpu", method="projective")).process_window(scenario["promotions"][0])
 
 
 def test_tracker_passes_raw_depth_to_the_keyframe_tracker(scenario, facade_reference):
     depths = scenario["promotions"][0]
     raw = [np.asarray(d * 1000.0 + 0.5, np.uint16) for d in depths]
-    tracker = Tracker(TrackerConfig(intrinsics=INTR, method="keyframe", projective=CFG, depth_scale=1e-3))
+    tracker = Tracker(TrackerConfig(intrinsics=INTR, device="cpu", method="keyframe", projective=CFG, depth_scale=1e-3))
     got = _per_frame(tracker, raw)
-    quant = _per_frame(KeyframeTracker(INTR, CFG), [r.astype(np.float32) * np.float32(1e-3) for r in raw])
+    quant = _per_frame(KeyframeTracker(INTR, CFG, device="cpu"), [r.astype(np.float32) * np.float32(1e-3) for r in raw])
     _assert_same_stream(got, quant)
 
 
@@ -244,7 +244,7 @@ def test_state_carried_from_jax_continues_the_stream(scenario, k):
     depths, kw, ref = scenario["promotions"]
     jt = JKeyframeTracker(JINTR, JCFG, **kw)
     _per_frame(jt, depths[:k])
-    pt = interop.keyframe_state_from_jax(jt)
+    pt = interop.keyframe_state_from_jax(jt, device="cpu")
     assert pt._index == k and len(pt.trajectory) == k
     assert pt.cfg == projective.fit_levels(CFG, 75, 100)
     assert (pt.max_translation, pt.max_rotation) == (0.06, 0.05)
@@ -256,7 +256,7 @@ def test_normal_space_keyframe_tracking():
     tests/test_baseline_configs.py:57-69."""
     depths = _sequence(5, step=(0.01, -0.005, 0.01, 0.0, 0.01, 0.0))
     cfg = projective.ProjectiveIcpConfig(iters=(6, 6, 8), samples=1536, sample_mode="normal_space")
-    tracker = Tracker(TrackerConfig(intrinsics=INTR, method="keyframe", projective=cfg))
+    tracker = Tracker(TrackerConfig(intrinsics=INTR, device="cpu", method="keyframe", projective=cfg))
     results = _per_frame(tracker, depths)
     assert all(r.success for r in results)
     truth = np.linalg.matrix_power(se3.exp(torch.tensor([0.01, -0.005, 0.01, 0.0, 0.01, 0.0])).numpy(), 4)

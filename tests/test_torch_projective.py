@@ -124,7 +124,7 @@ def test_projective_icp_pyramid_path_matches_jax(pairs):
 def test_association_and_normal_equations_match_jax(pairs):
     src, dst, _ = pairs
     jlevels, _ = jpyr.build_pyramid(j32(dst[3]), JINTR, 1, use_kernel=False)
-    level = interop.pyramid_levels_from_numpy(jlevels)[0]
+    level = interop.pyramid_levels_from_numpy(jlevels, device="cpu")[0]
     pts, ok = jproj.sample_depth_points(j32(np.where(src[3] > 0.05, src[3], 0.0)), JINTR, 2048)
     T = np.asarray(se3.exp(torch.tensor([0.01, -0.01, 0.005, 0.004, 0.003, -0.002])), np.float32)
 
