@@ -19,16 +19,23 @@ need for JAX. Phases, one JSON line each:
                    version (atol 2e-5, the validity pattern identical) at
                    the four level shapes of a 640x480 frame (B=4) and at
                    482x64 and 36x128.
-  4. gn_kernel  -- holds gn_associate_reduce and gn_reduce_fixed against
-                   their plain versions at the four level shapes (B=4, with
-                   holes, 2048/512/256/256 points) and at 482x64: at most
-                   0.1% of the associations flipped, the systems on the
-                   kernel's own association within 1e-4 relative, and a
-                   second launch bit-identical.
+  4. gn_kernel  -- holds gn_round (one association round: association,
+                   then inner_iters x reduction, damped 6x6 solve and SE(3)
+                   update) against its plain version at the four level
+                   shapes (B=4, with holes, 2048/512/256/256 points), at
+                   482x64 and at the 8192-point cap, for inner_iters 1-3:
+                   the pose within 1e-5 in twist, the matched count within
+                   0.1% of P, rmse within 1e-4 relative, a second launch
+                   bit-identical, and pair 1 alone (B=1) bit-identical to
+                   its row of the B=4 launch.
   5. register   -- register_batch on 64 pairs and register_batch_chunked on
                    1024 pairs (chunk 512) at 640x480 with the default
                    ProjectiveIcpConfig, against known twists.
   6. register_normal_space -- the 64 pairs with sample_mode="normal_space".
+  6b. gn_profile -- a profiler window over one projective_icp_sampled call
+                   at B=512 and at B=1: device kernels per call (at most
+                   40), gn_round launches (sum(cfg.iters)) and the device's
+                   busy share of the call's host time.
   7. tracker    -- Tracker(method="projective") over a 30-frame 640x480
                    trajectory: every frame succeeds, ATE rmse < 0.02 m.
   8. keyframe   -- Tracker(method="keyframe") over 88 u16 640x480 frames
@@ -52,7 +59,8 @@ need for JAX. Phases, one JSON line each:
                    syncs and copies per frame (profiler trace) and peak
                    device memory.
   9. timing     -- downsample, level and GN kernels vs their plain versions
-                   at B=512 (640x480, L=4; per level shape), in turns, and
+                   at B=512 (640x480, L=4; per level shape; gn_round also at
+                   B=1, level 0, the trackers' shape), in turns, and
                    register_batch_chunked pairs/s on 2048 pairs, chunk 512.
 
 Each main path (register, register_normal_space, tracker, keyframe,
@@ -76,8 +84,10 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 
 ATOL = 2e-5  # level kernel vs plain version (tests/test_kernels.py:29)
-GN_FLIP_BAR = 1e-3  # fraction of associations a ulp of the transform may flip
-GN_REL_BAR = 1e-4  # systems vs plain version: H / max|H|, b / sqrt(max|H| wsse)
+GN_TWIST_BAR = 1e-5  # gn_round's pose vs its plain version, twist of T_ref^-1 T
+GN_COUNT_BAR = 1e-3  # matched count vs plain version, fraction of P
+GN_RMSE_BAR = 1e-4  # rmse vs plain version, relative
+MAX_KERNELS_PER_ICP = 40  # device kernels of one projective_icp_sampled call
 TWIST_BAR_IDENTITY = 1e-4  # tests/test_projective_icp.py:65
 TWIST_BAR_MOTION = 3e-3  # tests/test_projective_icp.py:81
 TWIST_BAR_CPU = 1e-4  # CUDA vs the same code on CPU (the JAX parity bar)
@@ -102,8 +112,7 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
     # The gather probes (lane_gather_w256 :53, lane_gather_w640 :66,
     # sublane_gather :79) and the reduction-layout probe (reshape_cross_lane
     # :91) of the fused GN step that Mosaic could not lower.
-    "gn_associate_reduce": ("realsensetracker_tpu_torch/csrc/gn_step.cu", "tools/tpu/mosaic_probe5.py:53"),
-    "gn_reduce_fixed": ("realsensetracker_tpu_torch/csrc/gn_step.cu", "tools/tpu/mosaic_probe5.py:91"),
+    "gn_round": ("realsensetracker_tpu_torch/csrc/gn_step.cu", "tools/tpu/mosaic_probe5.py:53,91"),
 }
 
 
@@ -189,8 +198,7 @@ def main() -> None:
     def check_counts(got, what, levels, gn_rounds, pyramids):
         """levels: level-kernel launches; gn_rounds: association rounds;
         pyramids: downsample launches (one per pyramid or source-level set)."""
-        want = {"downsample_levels": pyramids, "build_level_packed": levels, "gn_associate_reduce": gn_rounds,
-                "gn_reduce_fixed": gn_rounds * (cfg.inner_iters - 1)}
+        want = {"downsample_levels": pyramids, "build_level_packed": levels, "gn_round": gn_rounds}
         check(got == want, f"{what}: launches {got}, expected {want}")
 
     def bound(nbytes, flops):
@@ -269,44 +277,41 @@ def main() -> None:
         cases.append(compare(holes(levels_of(d)[0]), odd))
     emit("kernel", atol=ATOL, cases=cases)
 
-    # ---- 4. GN kernels vs plain version ----------------------------------
-    gn_err = {"gn_associate_reduce": 0.0, "gn_reduce_fixed": 0.0}
+    # ---- 4. GN round vs plain version ------------------------------------
+    gn_err = 0.0  # worst abs error of a pose entry
 
-    def system_errors(got, ref):
-        """(H err / max|H|, b err / sqrt(max|H| wsse), wsse/wsum rel err,
-        max count difference, max abs err of the 30 floats), worst over
-        the pairs."""
-        H, b, (wsse, wsum, count) = gn_step.unpack_system(got)
-        Hr, br, (wsser, wsumr, countr) = gn_step.unpack_system(ref)
-        h_scale = Hr.abs().amax(dim=(1, 2)).clamp_min(1e-30)
-        h_rel = ((H - Hr).abs().amax(dim=(1, 2)) / h_scale).max().item()
-        b_rel = ((b - br).abs().amax(dim=1) / torch.sqrt(h_scale * wsser).clamp_min(1e-30)).max().item()
-        aux_rel = max(((wsse - wsser).abs() / wsser.clamp_min(1e-30)).max().item(),
-                      ((wsum - wsumr).abs() / wsumr.clamp_min(1e-30)).max().item())
-        return h_rel, b_rel, aux_rel, (count - countr).abs().max().item(), (got - ref).abs().max().item()
+    def same_round(a, b):
+        return torch.equal(a[0], b[0]) and all(torch.equal(x, y) for x, y in zip(a[1], b[1]))
 
     def compare_gn(T, pts, ok, packed, li):
-        got, n, d, aok = gn_step.gn_associate_reduce(T, pts, ok, packed, li, cfg)
-        again = gn_step.gn_associate_reduce(T, pts, ok, packed, li, cfg)[0]
-        _, rn, rd, rok = gn_step.gn_step_reference(T, pts, ok, packed, li, cfg)
-        same = (aok == rok) & (~rok | ((n == rn).all(1) & (d == rd)))
-        flips = int((~same).sum().item())
-        assoc = system_errors(got, gn_step.gn_reduce_fixed_reference(T, pts, n, d, aok, cfg))
-        T2 = se3.compose(se3.exp(torch.tensor([0.001, 0.0, -0.002, 0.0, 0.001, 0.0], device=dev)), T).contiguous()
-        fixed = system_errors(gn_step.gn_reduce_fixed(T2, pts, n, d, aok, cfg),
-                              gn_step.gn_reduce_fixed_reference(T2, pts, n, d, aok, cfg))
-        torch.cuda.synchronize()
-        shape = f"B={T.shape[0]} {packed.shape[-2]}x{packed.shape[-1]} P={pts.shape[-1]}"
-        check(torch.equal(again, got), f"gn_associate_reduce at {shape}: a second launch differs")
-        check(flips <= GN_FLIP_BAR * aok.numel(), f"gn at {shape}: {flips} association flips")
-        for name, (h_rel, b_rel, aux_rel, dcount, abs_err) in (("gn_associate_reduce", assoc),
-                                                               ("gn_reduce_fixed", fixed)):
-            check(max(h_rel, b_rel, aux_rel) <= GN_REL_BAR and dcount <= 1,
-                  f"{name} at {shape}: H {h_rel} b {b_rel} aux {aux_rel} count {dcount}")
-            gn_err[name] = max(gn_err[name], abs_err)
-        return {"shape": shape, "flips": flips, "points": aok.numel(), "matched": int(aok.sum().item()),
-                "assoc_h_rel": assoc[0], "assoc_b_rel": assoc[1], "assoc_aux_rel": assoc[2],
-                "fixed_h_rel": fixed[0], "fixed_b_rel": fixed[1], "fixed_aux_rel": fixed[2]}
+        nonlocal gn_err
+        p = pts.shape[-1]
+        shape = f"B={T.shape[0]} {packed.shape[-2]}x{packed.shape[-1]} P={p}"
+        rows = []
+        for inner in (1, 2, 3):
+            cfg_i = cfg._replace(inner_iters=inner)
+            got = gn_step.gn_round(T, pts, ok, packed, li, cfg_i)
+            again = gn_step.gn_round(T, pts, ok, packed, li, cfg_i)
+            alone = gn_step.gn_round(T[1:2], pts[1:2], ok[1:2], packed[1:2], li, cfg_i)
+            T_ref, (rmse_ref, _, count_ref) = gn_step.gn_round_reference(T, pts, ok, packed, li, cfg_i)
+            torch.cuda.synchronize()
+            T_got, (rmse, _, count) = got
+            what = f"gn_round at {shape} inner_iters={inner}"
+            check(same_round(again, got), f"{what}: a second launch differs")
+            check(same_round(alone, (T_got[1:2], tuple(x[1:2] for x in got[1]))), f"{what}: pair 1 depends on B")
+            check(bool(torch.isfinite(T_got).all()), f"{what}: non-finite poses")
+            twist = se3.log(se3.compose(se3.inverse(T_ref), T_got)).abs().max().item()
+            dcount = (count - count_ref).abs().max().item()
+            rmse_gap = (rmse - rmse_ref).abs()
+            check(twist <= GN_TWIST_BAR, f"{what}: twist {twist} > {GN_TWIST_BAR}")
+            check(dcount <= GN_COUNT_BAR * p, f"{what}: matched count off by {dcount}")
+            check(bool((rmse_gap <= GN_RMSE_BAR * rmse_ref).all()), f"{what}: rmse {rmse} vs {rmse_ref}")
+            err = (T_got - T_ref).abs().max().item()
+            gn_err = max(gn_err, err)
+            rows.append({"inner_iters": inner, "twist_err": twist, "pose_max_abs_err": err, "count_diff": dcount,
+                         "rmse_rel": (rmse_gap / rmse_ref.clamp_min(1e-30)).max().item(),
+                         "matched": count_ref.tolist()})
+        return {"shape": shape, "rounds": rows}
 
     def gn_inputs(dst_depth, src_depth, li, count, T):
         packed = level_kernel.build_level_packed(holes(dst_depth), li)
@@ -322,7 +327,10 @@ def main() -> None:
     odd, d_odd = odd_shapes[0]
     d_src = torch.stack([synthetic.render_depth(odd, T, scene) for T in se3.compose(poses4, moved)])
     gn_cases.append(compare_gn(*gn_inputs(levels_of(d_odd)[0], levels_of(d_src)[0], odd, 2048, moved), odd))
-    emit("gn_kernel", flip_bar=GN_FLIP_BAR, rel_bar=GN_REL_BAR, cases=gn_cases)
+    cap = gn_step.MAX_POINTS  # four points per thread
+    gn_cases.append(compare_gn(*gn_inputs(levels_of(frames4)[0], levels_of(src4)[0], intr, cap, moved), intr))
+    emit("gn_kernel", bars={"twist": GN_TWIST_BAR, "count_of_P": GN_COUNT_BAR, "rmse_rel": GN_RMSE_BAR},
+         cases=gn_cases)
 
     # ---- 5. batched registration (main path) -----------------------------
     scale = torch.tensor([0.02, 0.02, 0.02, 0.015, 0.015, 0.015], device=dev)
@@ -387,6 +395,53 @@ def main() -> None:
     check(vs_cpu <= TWIST_BAR_CPU, f"normal_space: CUDA vs CPU twist {vs_cpu} > {TWIST_BAR_CPU}")
     emit("register_normal_space", pairs=64, accuracy=acc_ns, cpu_pairs=n_cpu, twist_vs_cpu_max=vs_cpu,
          bars={"identity": TWIST_BAR_IDENTITY, "vs_cpu": TWIST_BAR_CPU, "motion": 5e-2})
+
+    # ---- 6b. device kernels and busy share of one projective_icp_sampled -
+    def icp_inputs(src_d, dst_d):
+        dst_levels, intrs = pyramid.build_pyramid(dst_d, intr, num_levels, cfg.min_depth, cfg.max_depth)
+        samples = [projective.sample_depth_points(dl, intrs[li], count, cfg.min_depth, cfg.max_depth)
+                   for li, (dl, count) in enumerate(zip(levels_of(src_d), level_samples))]
+        return samples, dst_levels, tuple(intrs)
+
+    def profile_icp(samples, dst_levels, intrs):
+        """Device kernels of one call (its kernel launches, from the runtime
+        API records), gn_round launches and their traced device times (one
+        per round, coarse to fine), and the device's busy share: the union
+        of the traced kernel and copy intervals over the host time from the
+        call to its synchronize, profiler on."""
+        run = lambda: projective.projective_icp_sampled(samples, dst_levels, intrs, None, cfg)  # noqa: E731
+        run()
+        torch.cuda.synchronize()
+        launched = gn_step.LAUNCHES["gn_round"]
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            res = run()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        launched = gn_step.LAUNCHES["gn_round"] - launched
+        check(bool(torch.isfinite(res.transform).all()), "gn_profile: non-finite transforms")
+        events = prof.events()
+        api = sum(e.name.startswith("cudaLaunchKernel") for e in events)
+        device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+        kernels = [e for e in device if not e.name.startswith(("Memcpy", "Memset"))]
+        gn_us = [e.time_range.elapsed_us() for e in kernels if "gn_round" in e.name]
+        busy, end = 0.0, float("-inf")
+        for a, b in sorted((e.time_range.start, e.time_range.end) for e in device):
+            busy += max(0.0, b - max(a, end))
+            end = max(end, b)
+        return {"batch": samples[0][0].shape[0], "device_kernels": api, "kernels_traced": len(kernels),
+                "copies_traced": len(device) - len(kernels), "gn_round_launches": launched,
+                "gn_round_traced": len(gn_us), "gn_round_device_us_per_launch": gn_us,
+                "device_busy_ms": busy / 1e3, "host_ms": wall_us / 1e3, "busy_share": busy / wall_us}
+
+    icp_profiles = [profile_icp(*icp_inputs(src_big[:chunk], dst_big[:chunk])),
+                    profile_icp(*icp_inputs(src_big[:1], dst_big[:1]))]
+    emit("gn_profile", max_kernels=MAX_KERNELS_PER_ICP, calls=icp_profiles, card=card)
+    for prof_ in icp_profiles:
+        what = f"gn_profile B={prof_['batch']}"
+        check(prof_["gn_round_launches"] == rounds, f"{what}: {prof_['gn_round_launches']} gn_round launches")
+        check(prof_["kernels_traced"] <= prof_["device_kernels"] <= MAX_KERNELS_PER_ICP,
+              f"{what}: {prof_['device_kernels']} device kernels ({prof_['kernels_traced']} traced)")
 
     # ---- 7. tracker facade (main path) -----------------------------------
     depths, poses_gt = synthetic.render_trajectory(intr, 30, seed=0, device=dev)
@@ -591,11 +646,31 @@ def main() -> None:
     emit("timing_downsample", batch=chunk, shape=list(d512.shape), levels=num_levels, kernel_ms=ds_k,
          plain_ms=ds_p, bytes=ds_bytes, bound_ms=ds_bound[0], kernel_GBps=ds_bytes / ds_k / 1e6, card=card)
 
+    def gn_work(T, pts, ok, packed, li):
+        """(bytes, f32 operations) one round needs for these inputs: T in and
+        out (64 B each per pair), 12 B of stats per pair, 13 B per point
+        (xyz + flag), 16 B of plane row per valid point; ~40 operations to
+        associate a valid point, ~105 per matched point and inner iteration
+        (transform, residual, weight, J, 27 products and sums), ~400 per
+        pair and inner iteration for the 6x6 LU, se3.exp and compose."""
+        b, _, p = pts.shape
+        level = pyramid.PyramidLevel(None, None, None, None, packed)
+        _, _, aok = projective.associate_planes_t(T, pts, ok, level, li, cfg)
+        n_ok, n_aok, inner = int(ok.sum().item()), int(aok.sum().item()), max(cfg.inner_iters, 1)
+        return b * (64 + 64 + 12) + b * p * 13 + n_ok * 16, n_ok * 40 + inner * (n_aok * 105 + b * 400)
+
+    def time_gn(T, pts, ok, packed, li, reps_p, reps_k):
+        k, p = turns(lambda: gn_step.gn_round_reference(T, pts, ok, packed, li, cfg),
+                     lambda: gn_step.gn_round(T, pts, ok, packed, li, cfg), reps_p, reps_k)
+        nbytes, flops = gn_work(T, pts, ok, packed, li)
+        b_ms, b_by = bound(nbytes, flops)
+        return {"shape": [T.shape[0], *packed.shape[-2:]], "points": pts.shape[-1], "kernel_ms": k,
+                "plain_ms": p, "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "flops": flops}
+
     kernel_ms, plain_ms, per_level = 0.0, 0.0, []
     level_bytes, level_flops = 0, 0
-    gn_work = {"gn_associate_reduce": [0, 0], "gn_reduce_fixed": [0, 0]}  # bytes, flops
-    gn_ms = {"gn_associate_reduce": [0.0, 0.0], "gn_reduce_fixed": [0.0, 0.0]}
-    gn_levels = []
+    gn_levels, gn_b1 = [], None
+    gn_ms, gn_plain_ms, gn_bytes, gn_flops = 0.0, 0.0, 0, 0
     T512 = truth_big[:chunk].contiguous()
     for d, ds, li, count in zip(levels_of(dst_big[:chunk]), levels_of(src_big[:chunk]), level_intrs, level_samples):
         compare(d, li)
@@ -610,30 +685,18 @@ def main() -> None:
         packed = level_kernel.build_level_packed(d, li)
         pts, ok = projective.sample_depth_points(ds, li, count)
         pts, ok = pts.transpose(1, 2).contiguous(), ok.contiguous()
-        _, n, dp, aok = gn_step.gn_associate_reduce(T512, pts, ok, packed, li, cfg)
-        ka, pa = turns(lambda: gn_step.gn_step_reference(T512, pts, ok, packed, li, cfg),
-                       lambda: gn_step.gn_associate_reduce(T512, pts, ok, packed, li, cfg), 5, 50)
-        kf, pf = turns(lambda: gn_step.gn_reduce_fixed_reference(T512, pts, n, dp, aok, cfg),
-                       lambda: gn_step.gn_reduce_fixed(T512, pts, n, dp, aok, cfg), 5, 50)
-        for name, (k_, p_) in (("gn_associate_reduce", (ka, pa)), ("gn_reduce_fixed", (kf, pf))):
-            gn_ms[name][0] += k_
-            gn_ms[name][1] += p_
-        # Bytes each reads once and writes once: T, the points and their
-        # flags, the 16-byte plane entry of each valid point (associate) or
-        # its stored plane (fixed), the outputs; ~110 / ~80 f32 operations
-        # per valid point.
-        n_pts, n_ok, n_aok = ok.numel(), int(ok.sum().item()), int(aok.sum().item())
-        per_pair = chunk * (64 + gn_step.SYSTEM_SIZE * 4)
-        gn_work["gn_associate_reduce"][0] += per_pair + n_pts * (12 + 1 + 12 + 4 + 1) + n_ok * 16
-        gn_work["gn_associate_reduce"][1] += n_ok * 110
-        gn_work["gn_reduce_fixed"][0] += per_pair + n_pts * (12 + 12 + 4 + 1)
-        gn_work["gn_reduce_fixed"][1] += n_aok * 80
-        gn_levels.append({"shape": [chunk, *packed.shape[-2:]], "points": count,
-                          "associate_ms": ka, "associate_plain_ms": pa, "fixed_ms": kf, "fixed_plain_ms": pf})
+        row = time_gn(T512, pts, ok, packed, li, 5, 50)
+        gn_levels.append(row)
+        gn_ms, gn_plain_ms = gn_ms + row["kernel_ms"], gn_plain_ms + row["plain_ms"]
+        gn_bytes, gn_flops = gn_bytes + row["bytes"], gn_flops + row["flops"]
+        if gn_b1 is None:  # level 0 at B=1: the trackers' launch
+            gn_b1 = time_gn(T512[:1].contiguous(), pts[:1], ok[:1], packed[:1], li, 20, 200)
+    gn_bound = bound(gn_bytes, gn_flops)
     emit("timing_kernel", batch=chunk, levels=per_level, kernel_ms_total=kernel_ms,
          plain_ms_total=plain_ms, card=card)
-    emit("timing_gn", batch=chunk, levels=gn_levels,
-         totals={k: {"kernel_ms": v[0], "plain_ms": v[1]} for k, v in gn_ms.items()}, card=card)
+    emit("timing_gn", batch=chunk, levels=gn_levels, b1_level0=gn_b1,
+         total={"kernel_ms": gn_ms, "plain_ms": gn_plain_ms, "bound_ms": gn_bound[0], "bound_by": gn_bound[1]},
+         card=card)
 
     base0, base1, _ = synthetic.render_pair(
         intr, torch.tensor([0.01, -0.005, 0.01, 0.005, -0.01, 0.005]), scene
@@ -658,14 +721,15 @@ def main() -> None:
 
     for name, n in main_launches.items():
         check(n > 0, f"the main paths never launched {name}")
-    errs = {"downsample_levels": ds_worst["abs"], "build_level_packed": max_err, **gn_err}
+    errs = {"downsample_levels": ds_worst["abs"], "build_level_packed": max_err, "gn_round": gn_err}
     times = {"downsample_levels": (ds_k, ds_p), "build_level_packed": (kernel_ms, plain_ms),
-             **{k: tuple(v) for k, v in gn_ms.items()}}
+             "gn_round": (gn_ms, gn_plain_ms)}
     bounds = {"downsample_levels": ds_bound, "build_level_packed": bound(level_bytes, level_flops),
-              **{k: bound(*v) for k, v in gn_work.items()}}
+              "gn_round": gn_bound}
     # No single PyTorch call computes any of these functions (a
-    # validity-aware mean over several levels, a plane table, a gated GNC
-    # normal-equation reduction), so library_ms is null throughout.
+    # validity-aware mean over several levels, a plane table, a round of
+    # gated GNC Gauss-Newton with its 6x6 solves), so library_ms is null
+    # throughout.
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": main_launches[name], "max_abs_err": errs[name],

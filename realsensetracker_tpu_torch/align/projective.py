@@ -6,10 +6,10 @@ point-to-plane with a Geman-McClure/GNC weight and a distance gate, and
 each pose update solves damped 6x6 Gauss-Newton normal equations on
 se(3). Where JAX vmapped a single pair, every function here carries the
 batch dimension B itself; where JAX used fori_loop, a Python loop runs.
-On CUDA tensors each association round is one launch of the fused GN-step
-kernel (kernels/gn_step.py) plus one reduction launch per further inner
-iteration; CPU tensors take the plain associate_planes_t +
-normal_equations_fixed_t below.
+On CUDA tensors each association round -- the association, every inner
+iteration's reduction, damped solve and SE(3) update -- is one launch of
+kernels/gn_step.gn_round; CPU tensors take its plain version, the
+associate_planes_t, normal_equations_fixed_t and solve_update below.
 """
 
 from __future__ import annotations
@@ -29,7 +29,7 @@ class ProjectiveIcpConfig(NamedTuple):
     iters: tuple[int, ...] = (3, 3, 3, 2)  # association rounds per level,
     # coarse -> fine; 4 levels (coarsest 80x60 at 640x480)
     inner_iters: int = 2  # GN steps per association (fixed planes)
-    samples: int = 2048  # source points sampled at the FINEST level
+    samples: int = 2048  # source points sampled at the FINEST level (<= 8192 on the card)
     sample_mode: str = "stride"  # "stride" | "normal_space" (BASELINE config 3)
     coarse_sample_divisor: int = 4  # level l uses samples / divisor**l
     min_samples: int = 256  # floor for the coarsest levels
@@ -238,28 +238,12 @@ def solve_update(T, H, b, aux, num_samples: int, cfg: ProjectiveIcpConfig):
 
 def _step(T, src_pts_t, src_ok, dst_level: PyramidLevel, intr: camera.Intrinsics, cfg: ProjectiveIcpConfig):
     """One association round: one plane gather at the current poses, then
-    cfg.inner_iters GN updates against those fixed planes.
-
-    CUDA tensors: gn_associate_reduce gathers the planes AND reduces the
-    first system at the same poses in one launch; gn_reduce_fixed serves
-    the further inner iterations. CPU tensors: the plain functions above.
+    cfg.inner_iters GN updates against those fixed planes. CUDA tensors:
+    one gn_round launch; CPU tensors: its plain version, the functions above.
     """
-    num_samples = src_pts_t.shape[-1]
-    stats = None
     if src_pts_t.is_cuda:
-        system, n_t, d_plane, ok = gn_step.gn_associate_reduce(
-            T, src_pts_t, src_ok, dst_level.packed, intr, cfg
-        )
-        for it in range(max(cfg.inner_iters, 1)):
-            if it:
-                system = gn_step.gn_reduce_fixed(T, src_pts_t, n_t, d_plane, ok, cfg)
-            T, stats = solve_update(T, *gn_step.unpack_system(system), num_samples, cfg)
-        return T, stats
-    n_t, d_plane, ok = associate_planes_t(T, src_pts_t, src_ok, dst_level, intr, cfg)
-    for _ in range(max(cfg.inner_iters, 1)):
-        H, b, aux = normal_equations_fixed_t(T, src_pts_t, n_t, d_plane, ok, cfg)
-        T, stats = solve_update(T, H, b, aux, num_samples, cfg)
-    return T, stats
+        return gn_step.gn_round(T, src_pts_t, src_ok, dst_level.packed, intr, cfg)
+    return gn_step.gn_round_reference(T, src_pts_t, src_ok, dst_level.packed, intr, cfg)
 
 
 def _initial(batch: int, init_transform, device):

@@ -4,9 +4,9 @@
   mean, floor dims) from one launch.
 * level_kernel: fused depth -> plane table [n | d = n.q] for one pyramid
   level (the destination-frame preprocessing of projective ICP).
-* gn_step: fused Gauss-Newton step -- projective association into the
-  plane table + reduction of the 6x6 system, and the fixed-plane reduction
-  of the further inner iterations.
+* gn_step: one Gauss-Newton association round of projective ICP per
+  launch -- association into the plane table, then per inner iteration the
+  6x6 reduction, damped solve and SE(3) update.
 """
 
 from realsensetracker_tpu_torch.kernels.level_kernel import build_level_packed  # noqa: F401

@@ -7,11 +7,11 @@ a machine with a card and no JAX, without the suite's conftest:
 The downsample kernel is held against its plain torch version bit for bit
 (both sum the children in one order and divide exactly); the level kernel
 against its plain torch version at atol 2e-5 with the validity pattern
-exact; the GN-step kernels against theirs with at
-most 0.1% of the associations flipped (a ulp in the point transform can
-move a point across a pixel's half-way line) and the systems, on the
-kernel's own association, to 1e-4 relative (H to max|H|, b to
-sqrt(max|H| wsse), f32 sums in another order); the CUDA paths against the
+exact; the GN round (gn_round) against its plain version with the pose
+within 1e-5 in twist, the matched count within max(1, 0.1% of P) (a ulp in
+the point transform can move a point across a pixel's half-way line) and
+rmse within 1e-4 relative (f32 sums in another order), bit-identical from
+launch to launch and from batch to batch; the CUDA paths against the
 same code on CPU: registration and the projective trackers to 1e-4, the
 world map by count, the cloud trackers to 1e-3 (a near-tie nearest
 neighbour can go the other way in another summation order).
@@ -126,37 +126,90 @@ def _gn_inputs(shape, p, device):
     return T, pts.transpose(1, 2).contiguous(), ok.contiguous(), packed, intr
 
 
-def _assert_systems_close(got, ref):
-    H, b, (wsse, wsum, count) = gn_step.unpack_system(got)
-    Hr, br, (wsser, wsumr, countr) = gn_step.unpack_system(ref)
-    h_scale = Hr.abs().amax(dim=(1, 2))
-    assert ((H - Hr).abs().amax(dim=(1, 2)) <= 1e-4 * h_scale).all()
-    b_scale = torch.sqrt(h_scale * wsser)
-    assert ((b - br).abs().amax(dim=1) <= 1e-4 * b_scale + 1e-12).all()
-    torch.testing.assert_close(wsse, wsser, rtol=1e-4, atol=1e-12)
-    torch.testing.assert_close(wsum, wsumr, rtol=1e-4, atol=1e-12)
-    assert ((count - countr).abs() <= 1).all()  # a gate decision within an ulp
+def _assert_rounds_close(got, ref, p):
+    """gn_round against gn_round_reference: the pose within 1e-5 in twist,
+    the matched count within max(1, 0.1% of P) (a ulp of the transform can
+    move a point across a pixel's half-way line or the distance gate), rmse
+    within 1e-4 relative (f32 sums in another order)."""
+    (T, (rmse, _, count)), (Tr, (rmser, _, countr)) = got, ref
+    assert torch.isfinite(T).all()
+    twist = se3.log(se3.compose(se3.inverse(Tr), T)).abs().amax()
+    assert twist.item() <= 1e-5
+    assert (count - countr).abs().max().item() <= max(1, 1e-3 * p)
+    assert ((rmse - rmser).abs() <= 1e-4 * rmser + 1e-9).all()
 
 
+def _assert_equal_rounds(a, b):
+    (Ta, sa), (Tb, sb) = a, b
+    assert torch.equal(Ta, Tb)
+    for x, y in zip(sa, sb):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("inner_iters", [1, 2, 3])
 @pytest.mark.parametrize("p", [2048, 777])
 @pytest.mark.parametrize("shape", SHAPES, ids=lambda s: f"{s[0]}x{s[1]}")
-def test_gn_kernels_match_reference(cuda, shape, p):
-    cfg = projective.ProjectiveIcpConfig()
+def test_gn_round_matches_reference(cuda, shape, p, inner_iters):
+    cfg = projective.ProjectiveIcpConfig(inner_iters=inner_iters)
     T, pts, ok, packed, intr = _gn_inputs(shape, p, cuda)
-    before = dict(gn_step.LAUNCHES)
-    system, n, d, aok = gn_step.gn_associate_reduce(T, pts, ok, packed, intr, cfg)
-    again = gn_step.gn_associate_reduce(T, pts, ok, packed, intr, cfg)[0]
+    before = gn_step.LAUNCHES["gn_round"]
+    got = gn_step.gn_round(T, pts, ok, packed, intr, cfg)
+    again = gn_step.gn_round(T, pts, ok, packed, intr, cfg)
     torch.cuda.synchronize()
-    assert gn_step.LAUNCHES["gn_associate_reduce"] == before["gn_associate_reduce"] + 2
-    torch.testing.assert_close(again, system, rtol=0, atol=0)  # no atomics: bit-identical
-    _, rn, rd, rok = gn_step.gn_step_reference(T, pts, ok, packed, intr, cfg)
-    same = (aok == rok) & (~rok | ((n == rn).all(1) & (d == rd)))
-    assert (~same).sum().item() <= 1e-3 * same.numel()  # association flips
-    _assert_systems_close(system, gn_step.gn_reduce_fixed_reference(T, pts, n, d, aok, cfg))
-    T2 = se3.compose(se3.exp(torch.tensor([0.001, 0.0, -0.002, 0.0, 0.001, 0.0], device=cuda)), T).contiguous()
-    fixed = gn_step.gn_reduce_fixed(T2, pts, n, d, aok, cfg)
-    assert gn_step.LAUNCHES["gn_reduce_fixed"] == before["gn_reduce_fixed"] + 1
-    _assert_systems_close(fixed, gn_step.gn_reduce_fixed_reference(T2, pts, n, d, aok, cfg))
+    assert gn_step.LAUNCHES["gn_round"] == before + 2
+    _assert_equal_rounds(again, got)  # no atomics: bit-identical
+    _assert_rounds_close(got, gn_step.gn_round_reference(T, pts, ok, packed, intr, cfg), p)
+
+
+@pytest.mark.parametrize("p", [3000, gn_step.MAX_POINTS])
+def test_gn_round_above_one_point_per_thread(cuda, p):
+    """Two and four points per thread (P > 2048), up to the cap; one more
+    point raises."""
+    cfg = projective.ProjectiveIcpConfig()
+    T, pts, ok, packed, intr = _gn_inputs((480, 640), p, cuda)
+    _assert_rounds_close(gn_step.gn_round(T, pts, ok, packed, intr, cfg),
+                         gn_step.gn_round_reference(T, pts, ok, packed, intr, cfg), p)
+    more = torch.cat([pts, pts[..., :1]], dim=-1)
+    if more.shape[-1] > gn_step.MAX_POINTS:
+        with pytest.raises(ValueError):
+            gn_step.gn_round(T, more, torch.cat([ok, ok[:, :1]], dim=-1), packed, intr, cfg)
+
+
+@pytest.mark.parametrize("p", [2048, 777, 256])
+def test_gn_round_pair_does_not_depend_on_batch(cuda, p):
+    """A pair's round at B=1 equals, bit for bit, its round inside B=8."""
+    cfg = projective.ProjectiveIcpConfig()
+    T, pts, ok, packed, intr = _gn_inputs((240, 320), p, cuda)
+    order = torch.tensor([2, 0, 1, 1, 0, 2, 2, 1], device=cuda)
+    batch = gn_step.gn_round(*(x[order].contiguous() for x in (T, pts, ok, packed)), intr, cfg)
+    for row, i in enumerate(order.tolist()):
+        single = gn_step.gn_round(T[i : i + 1], pts[i : i + 1], ok[i : i + 1], packed[i : i + 1], intr, cfg)
+        _assert_equal_rounds(single, (batch[0][row : row + 1], tuple(s[row : row + 1] for s in batch[1])))
+
+
+def test_gn_round_keeps_pose_without_a_solution(cuda):
+    """An all-invalid pair (H = 0, so delta = 0) and a pair whose system
+    overflows f32 (one matched point at depth 1e30 against the plane
+    x = 0: J has a 1e30 entry, H an inf, the solve no finite step) keep
+    their poses bit for bit, as solve_update's guard does; the third pair
+    is a normal round."""
+    cfg = projective.ProjectiveIcpConfig()
+    T, pts, ok, packed, intr = _gn_inputs((120, 160), 2048, cuda)
+    T, pts, ok, packed = T.clone(), pts.clone(), ok.clone(), packed.clone()
+    ok[0] = False
+    T[1] = se3.identity(device=cuda)
+    pts[1, :, 0] = torch.tensor([0.0, 0.0, 1e30], device=cuda)
+    ok[1, 0] = True
+    packed[1] = torch.tensor([1.0, 0.0, 0.0, 0.0], device=cuda)[:, None, None]
+    got = gn_step.gn_round(T, pts, ok, packed, intr, cfg)
+    ref = gn_step.gn_round_reference(T, pts, ok, packed, intr, cfg)
+    torch.cuda.synchronize()
+    for T_new in (got[0], ref[0]):
+        assert torch.equal(T_new[:2], T[:2])
+    assert got[1][2][0].item() == ref[1][2][0].item() == 0
+    assert got[1][2][1].item() == ref[1][2][1].item() > 0
+    _assert_rounds_close((got[0][2:], tuple(s[2:] for s in got[1])),
+                         (ref[0][2:], tuple(s[2:] for s in ref[1])), 2048)
 
 
 def _register_on_both(cuda, cfg):
@@ -173,8 +226,7 @@ def _register_on_both(cuda, cfg):
     assert level_kernel.LAUNCHES == before + pyramids * len(fitted.iters)
     assert downsample.LAUNCHES == ds_before + 2  # destination pyramid + source levels
     rounds = sum(fitted.iters)
-    assert gn_step.LAUNCHES["gn_associate_reduce"] == gn_before["gn_associate_reduce"] + rounds
-    assert gn_step.LAUNCHES["gn_reduce_fixed"] == gn_before["gn_reduce_fixed"] + rounds * (cfg.inner_iters - 1)
+    assert gn_step.LAUNCHES["gn_round"] == gn_before["gn_round"] + rounds
     np.testing.assert_allclose(
         se3.log(got.transform.cpu()).numpy(), se3.log(ref.transform).numpy(), atol=1e-4
     )
