@@ -55,32 +55,56 @@ need for JAX. Phases, one JSON line each:
   8d. icp       -- Tracker(method="icp") (8192-point clouds, 128 ICP
                    iterations) over 10 640x480 frames: every frame
                    succeeds, the first 3 within 1e-3 of the CPU run.
-                   Phases 8b-8d also print host ms/frame medians, device
+  8e. gicp      -- Tracker(method="gicp") (8192-point clouds, GicpConfig
+                   defaults: 16 rounds x 8 GN steps, cov_k 32) over the 10
+                   frames of phase 8d, with the same checks.
+                   Phases 8b-8e also print host ms/frame medians, device
                    syncs and copies per frame (profiler trace) and peak
                    device memory.
+  8f. align_pair -- get_pipeline("gicp"), ("fpfh-kabsch-icp") and
+                   ("robust-global") on the 8192-point voxel cloud of one
+                   640x480 frame and that cloud moved by a known twist,
+                   each with its defaults and the FPFH pipelines also with
+                   the cap sized to the densest ball: gicp within 5e-3 of
+                   the truth and 1e-3 of its CPU run, fpfh-kabsch-icp
+                   within 1e-3 of its CPU run and, auto-sized, 5e-3 of the
+                   truth (tests/test_api_cli.py:97); robust-global, whose
+                   answer on this scene is not stable, within 1e-3 of its
+                   CPU run and valid on an 8192-point Gaussian cloud and
+                   its moved copy. Prints the truth gaps, the FPFH
+                   truncation flag, ms, syncs and copies per pair, the GNC
+                   and peel rounds, peak memory, and (no bar) the truth
+                   gaps between two frames' own clouds.
   9. timing     -- downsample, level and GN kernels vs their plain versions
                    at B=512 (640x480, L=4; per level shape; gn_round also at
                    B=1, level 0, the trackers' shape), in turns, and
-                   register_batch_chunked pairs/s on 2048 pairs, chunk 512.
+                   register_batch_chunked pairs/s on 2048 pairs, chunk 512;
+                   ops.correspond.k_smallest (the tie-stable k-NN) against
+                   a stable sort of each row at the k-NN shapes of GICP and
+                   FPFH.
 
 Each main path (register, register_normal_space, tracker, keyframe,
-world_map, model, icp) runs with every launch count set to 0 just before
-it and read just after; a kernel the path runs must have launched there,
-and the cloud paths (model, icp), which run no kernel of their own, must
-have launched none. Then the kernels line, with each kernel's bound (the
+world_map, model, icp, gicp, align_pair) runs with every launch count set
+to 0 just before it and read just after; a kernel the path runs must have
+launched there, and the cloud paths (model, icp, gicp, align_pair), which
+run no kernel of their own, must have launched none. Then the kernels line, with each kernel's bound (the
 larger of its bytes over 3.35 TB/s and its f32 operations over 67
 TFLOP/s, from this run's inputs), and last {"ok": true, "device": {...}}.
 Any failed check raises: the exit code is non-zero and the last line is
-not printed.
+not printed. Every phase line carries the seconds since the start and the
+process's user and system CPU seconds. The script first starts itself
+again with glibc's large blocks kept on the heap (MALLOC_ENV).
 """
 
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
 import time
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 
 ATOL = 2e-5  # level kernel vs plain version (tests/test_kernels.py:29)
@@ -95,7 +119,8 @@ ATE_BAR = 0.02  # meters, tests/test_tracking.py:40
 ULP_BAR = 2  # downsample kernel vs plain version, depth
 MAP_COUNT_BAR = 0.01  # world map count, CUDA vs CPU, relative
 MODEL_TRUTH_BAR = 0.05  # tests/test_tracking.py:249-251
-CLOUD_CPU_BAR = 1e-3  # model / icp twist, CUDA vs CPU, first 3 frames
+CLOUD_CPU_BAR = 1e-3  # model / icp / gicp twist, CUDA vs CPU, first 3 frames; pipelines
+PIPELINE_TRUTH_BAR = 5e-3  # gicp and fpfh-kabsch-icp vs the known twist (tests/test_api_cli.py:97)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM peak HBM3 bandwidth
 F32_FLOPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
@@ -116,8 +141,22 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
 }
 
 
+# The CPU comparisons allocate distance blocks of tens to hundreds of MB at
+# every search step. glibc would map each one afresh and unmap it on free,
+# and the page faults of the fresh pages cost as much as the arithmetic:
+# with these set, large blocks come from the heap and stay there for reuse.
+# glibc reads them at start-up, so the script starts itself again once.
+MALLOC_ENV = {"MALLOC_MMAP_THRESHOLD_": str(4 << 30), "MALLOC_TRIM_THRESHOLD_": str(16 << 30)}
+
+_START = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One phase's JSON line, with the seconds since the script started and
+    the process's CPU seconds so far (user, system)."""
+    cpu = os.times()
+    print(json.dumps({"phase": phase, **fields, "elapsed_s": time.perf_counter() - _START,
+                      "user_s": cpu.user, "sys_s": cpu.system}), flush=True)
 
 
 def check(cond: bool, what: str) -> None:
@@ -132,14 +171,17 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; needs a CUDA card")
 
-    from realsensetracker_tpu_torch.align import projective
-    from realsensetracker_tpu_torch.api import Tracker, TrackerConfig
+    from realsensetracker_tpu_torch.align import projective, robust_global
+    from realsensetracker_tpu_torch.api import AlignConfig, Tracker, TrackerConfig
     from realsensetracker_tpu_torch.data import synthetic
     from realsensetracker_tpu_torch.geometry import camera, se3
     from realsensetracker_tpu_torch.kernels import build, downsample, gn_step, level_kernel
-    from realsensetracker_tpu_torch.ops import pyramid
+    from realsensetracker_tpu_torch.models import get_pipeline
+    from realsensetracker_tpu_torch.ops import correspond, fpfh, pyramid, voxel
+    from realsensetracker_tpu_torch.ops.cloud import Cloud
     from realsensetracker_tpu_torch.parallel import batched
     from realsensetracker_tpu_torch.tracking import trajectory
+    from realsensetracker_tpu_torch.tracking.frame_to_model import frame_cloud
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -540,19 +582,22 @@ def main() -> None:
         a, b = torch.as_tensor(np.stack(a)), torch.as_tensor(np.stack(b))
         return se3.log(torch.linalg.inv(a) @ b).abs().max().item()
 
-    def trace_frame(tracker_, frames_):
-        """Device-to-host copies and syncs per frame over frames_, from a
-        profiler trace, and the device time of those frames."""
+    def trace_calls(run, n):
+        """Device-to-host copies and syncs per call over n calls of run(i),
+        from a profiler trace, and the device ms per call."""
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for f in frames_:
-                tracker_.process(f)
+            for i in range(n):
+                run(i)
             torch.cuda.synchronize()
         events = prof.key_averages()
-        copies = {e.key: e.count / len(frames_) for e in events if "Memcpy" in e.key or "Synchronize" in e.key}
+        copies = {e.key: e.count / n for e in events if "Memcpy" in e.key or "Synchronize" in e.key}
         device_us = sum(getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
                         for e in events)
-        device_ms = device_us / 1e3 / len(frames_)
-        return copies, device_ms
+        return copies, device_us / 1e3 / n
+
+    def trace_frame(tracker_, frames_):
+        """trace_calls over tracker_.process of each of frames_."""
+        return trace_calls(lambda i: tracker_.process(frames_[i]), len(frames_))
 
     def run_stream(cfg_, frames_):
         """(tracker, results, host ms per frame) with the counts reset just
@@ -590,11 +635,13 @@ def main() -> None:
          host_ms_per_frame_median=statistics.median(wm_ms[1:]), device_ms_per_frame=wm_dev_ms,
          copies_and_syncs_per_frame=wm_copies, peak_mem_GB=wm_peak, card=card)
 
-    # 8c-8d. The cloud trackers: their NN search is a torch.matmul; no
-    # kernel of the port runs on these paths.
+    # 8c-8e. The cloud trackers: their NN search is a torch.matmul, GICP's
+    # whitening a torch.linalg.eigh; no kernel of the port runs on these
+    # paths.
     cloud_phases = (
         ("model", 20, lambda d: TrackerConfig(intrinsics=intr, method="model", device=d)),
         ("icp", 10, lambda d: TrackerConfig(intrinsics=intr, method="icp", device=d)),
+        ("gicp", 10, lambda d: TrackerConfig(intrinsics=intr, method="gicp", device=d)),
     )
     model_depths, model_poses = synthetic.render_trajectory(intr, 20, seed=0, device=dev)
     for name, n_frames, make_cfg in cloud_phases:
@@ -617,6 +664,100 @@ def main() -> None:
         emit(name, frames=n_frames, twist_vs_cpu_3=vs_cpu, launches=launches_, **fields,
              host_ms_per_frame_median=statistics.median(ms_[1:]), device_ms_per_frame=dev_ms_,
              copies_and_syncs_per_frame=copies_, peak_mem_GB=peak_, card=card)
+
+    # ---- 8f. the pairwise pipelines (main path) ----------------------------
+    # One frame's 8192-point voxel cloud and that cloud moved by a known
+    # twist: the bar of tests/test_api_cli.py:97 assumes shared points. Each
+    # pipeline runs with its defaults. The FPFH cap of 64 neighbours
+    # truncates the 0.5 m ball of 5 cm voxels; on this scene
+    # fpfh-kabsch-icp's Kabsch seed then lands far off and ICP settles in
+    # another minimum (the CPU alike): its truth bar is held with the cap
+    # sized to the densest ball (fpfh_max_neighbors=0, the reference's
+    # radiusSearch semantics). robust-global's FPFH matches on this scene's
+    # planes and spheres are too poor for its answer to be stable (printed,
+    # no bar); it is held to its CPU run and to valid on an 8192-point
+    # Gaussian cloud and its moved copy, as tests/test_api_cli.py:86-96
+    # builds its pairs. Two frames' own clouds sample the surfaces
+    # differently, which biases point-to-point ICP: no bar there either.
+    pair_twist = torch.tensor([0.02, -0.01, 0.015, 0.01, -0.015, 0.01], device=dev)
+    d_dst, d_src, T_two = synthetic.render_pair(intr, pair_twist, scene)
+    T_known = se3.exp(pair_twist)
+    src_cloud = frame_cloud(d_src, intr, 0.05, 8192)
+    dst_cloud = Cloud(se3.transform_points(T_known, src_cloud.points), src_cloud.mask)
+    two_dst = frame_cloud(d_dst, intr, 0.05, 8192)
+    blob = 0.8 * torch.randn((8192, 3), generator=torch.Generator().manual_seed(0)).to(dev)
+    everywhere = torch.ones(8192, dtype=torch.bool, device=dev)
+    blob_pair = (Cloud(blob, everywhere), Cloud(se3.transform_points(T_known, blob), everywhere))
+    on_cpu = lambda c: Cloud(c.points.cpu(), c.mask.cpu())  # noqa: E731
+
+    def truth_gap(T, T_true):
+        return se3.log(se3.compose(se3.inverse(T_true), T.to(T_true.device))).abs().max().item()
+
+    frame_pair = (src_cloud, dst_cloud)
+    pipelines = (  # (label, registry name, factory overrides, inputs, truth bar, CPU bar; None: no run or bar)
+        ("gicp", "gicp", {}, frame_pair, PIPELINE_TRUTH_BAR, CLOUD_CPU_BAR),
+        ("fpfh-kabsch-icp", "fpfh-kabsch-icp", {}, frame_pair, None, CLOUD_CPU_BAR),
+        ("fpfh-kabsch-icp auto-cap", "fpfh-kabsch-icp", {"cfg": AlignConfig(fpfh_max_neighbors=0)}, frame_pair,
+         PIPELINE_TRUTH_BAR, None),
+        ("robust-global", "robust-global", {}, frame_pair, None, None),
+        ("robust-global blob", "robust-global", {}, blob_pair, None, CLOUD_CPU_BAR),
+    )
+    pipe_rows, failures = {}, []
+    for label, name, overrides, pair_in, truth_bar, cpu_bar in pipelines:
+        run_pipe = get_pipeline(name, **overrides)  # on the card: no device argument
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            run_pipe(*pair_in)  # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            robust_global.ITERATIONS.update(peel=0, gnc=0)
+            t0 = time.perf_counter()
+            out = run_pipe(*pair_in)
+            torch.cuda.synchronize()
+            pair_ms = (time.perf_counter() - t0) * 1e3
+            rounds_ = dict(robust_global.ITERATIONS)
+            launches_ = read_counts()
+            peak_ = torch.cuda.max_memory_allocated() / 1e9
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            vs_cpu = None
+            if cpu_bar is not None:
+                cpu_out = get_pipeline(name, device="cpu", **overrides)(*map(on_cpu, pair_in))
+                vs_cpu = truth_gap(out.transform, cpu_out.transform.to(dev))
+            copies_, dev_ms_ = trace_calls(lambda i: run_pipe(*pair_in), 1)
+            two_gap = None
+            if pair_in is frame_pair and name != "robust-global":
+                two_gap = truth_gap(run_pipe(src_cloud, two_dst).transform, T_two)
+        gap = truth_gap(out.transform, T_known)
+        row = {"truth_twist_gap": gap, "twist_vs_cpu": vs_cpu, "bars": {"truth": truth_bar, "vs_cpu": cpu_bar},
+               "two_frame_truth_gap": two_gap, "ms_per_pair": pair_ms, "device_ms_per_pair": dev_ms_,
+               "copies_and_syncs_per_pair": copies_, "launches": launches_, "peak_mem_GB": peak_,
+               "fpfh_truncated": any("truncates" in str(w.message) for w in caught)}
+        if name != "gicp":
+            row["num_matches"] = int(out.num_matches)
+        if name == "robust-global":
+            # register_robust's own result, which align_pair keeps only as
+            # its transform: the same steps with the AlignConfig defaults.
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                downs = [voxel.downsample_voxel(c, 0.05) for c in pair_in]
+                rr = robust_global.register_robust(*downs, *(fpfh.compute_fpfh(c, torch.zeros(3, device=dev))
+                                                             for c in downs))
+            row.update(gnc_rounds=rounds_["gnc"], peel_rounds=rounds_["peel"], valid=bool(rr.valid),
+                       num_correspondences=int(rr.num_correspondences), num_inliers=int(rr.num_inliers),
+                       rotation_inlier_fraction=float(rr.rotation_inlier_fraction))
+            failures += [] if rr.valid else [f"align_pair {label}: not valid"]
+        failures += [f"align_pair {label}: {what}" for bad, what in (
+            (any(n != 0 for n in launches_.values()), f"a kernel launched: {launches_}"),
+            (not bool(torch.isfinite(out.transform).all()), "non-finite transform"),
+            (not (bool(torch.isfinite(out.cost)) if name == "gicp" else out.success), "not a success"),
+            (truth_bar is not None and not gap < truth_bar, f"truth gap {gap} >= {truth_bar}"),
+            (cpu_bar is not None and not vs_cpu <= cpu_bar, f"CUDA vs CPU twist {vs_cpu} > {cpu_bar}"),
+        ) if bad]
+        pipe_rows[label] = row
+    emit("align_pair", points=int(src_cloud.mask.sum().item()), pipelines=pipe_rows, card=card)
+    check(not failures, "; ".join(failures))
 
     # ---- 9. timing (CUDA events, after warm-up) --------------------------
     def time_ms(fn, reps):
@@ -719,6 +860,21 @@ def main() -> None:
          pairs_per_s=batch * n_iters / dt, seconds=dt,
          peak_mem_GB=torch.cuda.max_memory_allocated() / 1e9, card=card)
 
+    # The tie-stable k-NN: k_smallest (topk over value-bits|index keys)
+    # against a stable sort of each row, on one 1024-query chunk of the
+    # 8192-point cloud, at the k of the normals (16), of GICP's covariances
+    # (32) and of the FPFH neighbourhoods (65).
+    d_chunk = correspond._masked_sqdist(src_cloud.points[:1024], src_cloud)
+    knn_rows = []
+    for k in (16, 32, 65):
+        i_key, _ = correspond.k_smallest(d_chunk, k)
+        i_sort = torch.sort(d_chunk, dim=-1, stable=True).indices[:, :k]
+        check(torch.equal(i_key, i_sort), f"k_smallest at k={k} differs from a stable sort")
+        key_ms, sort_ms = turns(lambda k=k: torch.sort(d_chunk, dim=-1, stable=True).indices[:, :k],
+                                lambda k=k: correspond.k_smallest(d_chunk, k), 20, 20)
+        knn_rows.append({"k": k, "k_smallest_ms": key_ms, "stable_sort_ms": sort_ms})
+    emit("timing_knn", queries=d_chunk.shape[0], points=d_chunk.shape[1], rows=knn_rows, card=card)
+
     for name, n in main_launches.items():
         check(n > 0, f"the main paths never launched {name}")
     errs = {"downsample_levels": ds_worst["abs"], "build_level_packed": max_err, "gn_round": gn_err}
@@ -744,4 +900,6 @@ def main() -> None:
 
 
 if __name__ == "__main__":
+    if any(os.environ.get(k) != v for k, v in MALLOC_ENV.items()):
+        os.execve(sys.executable, sys.orig_argv, {**os.environ, **MALLOC_ENV})
     sys.exit(main())

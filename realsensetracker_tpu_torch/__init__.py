@@ -1,7 +1,9 @@
 """realsensetracker_tpu_torch: the PyTorch + CUDA port of realsensetracker_tpu.
 
 Depth frames in, SE(3) poses out, by coarse-to-fine projective
-point-to-plane Gauss-Newton or by GNC point-to-point ICP on voxel clouds,
+point-to-plane Gauss-Newton or by GNC point-to-point ICP or GICP on voxel
+clouds; pairwise cloud registration by FPFH matching or robust global
+registration,
 on an NVIDIA H100 by default (or, with ``device="cpu"``, on the CPU
 through the kernels' plain PyTorch versions). The JAX package ``realsensetracker_tpu``
 is the reference this port is held against by the ``tests/test_torch_*``
@@ -9,13 +11,16 @@ parity tests; the port never imports it, nor JAX.
 
 Layer map (each module sits at the same path as its JAX counterpart):
   geometry/   SE(3) exp/log + pinhole camera
-  ops/        grid normals, depth pyramid with the planar plane table;
-              masked clouds, voxel downsample, brute-force nearest neighbours
+  ops/        grid and k-NN PCA normals, depth pyramid with the planar plane
+              table; masked clouds, voxel downsample, brute-force (k-)nearest
+              neighbours, FPFH features and matching
   kernels/    hand-written CUDA kernels (sources in csrc/) + plain versions:
               the pyramid downsample, the pyramid level builder and the
               fused Gauss-Newton step
   align/      projective point-to-plane ICP (stride / normal-space
-              sampling), batched over a leading B; Kabsch and GNC-ICP
+              sampling), batched over a leading B; Kabsch, GNC-ICP, GICP and
+              GNC-TLS robust global registration
+  models/     the rs_align_app pipeline (align_pair) and the named pipelines
   parallel/   batched and chunked pair registration
   data/       synthetic raycast scenes, depth-unit policy
   tracking/   frame-to-frame (with the voxel world map), frame-to-keyframe

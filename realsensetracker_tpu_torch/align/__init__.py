@@ -1,1 +1,2 @@
-"""Registration: projective point-to-plane ICP, Kabsch and GNC-ICP."""
+"""Registration: projective point-to-plane ICP, Kabsch, GNC-ICP, GICP and
+robust global registration."""

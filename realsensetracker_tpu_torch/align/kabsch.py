@@ -27,14 +27,22 @@ def _det3(R: torch.Tensor) -> torch.Tensor:
     return (R[..., 0, :] * torch.linalg.cross(R[..., 1, :], R[..., 2, :], dim=-1)).sum(-1)
 
 
-def kabsch_from_cross_covariance(cov: torch.Tensor, src_mean: torch.Tensor, dst_mean: torch.Tensor) -> torch.Tensor:
-    """Rotation from a 3x3 cross-covariance (dst-centred x src-centred^T)
-    with the reference's det fix, then the translation: a (..., 4, 4) f32
-    pose."""
-    u, _, vt = torch.linalg.svd(cov)
-    R = (u @ vt).to(torch.float32)
+def rotation_from_cross_covariance(cov: torch.Tensor) -> torch.Tensor:
+    """R = U V^T of a 3x3 cross-covariance (dst-centred x src-centred^T) in
+    f32, its third column flipped where det(R) < 0, as the reference does.
+    A non-finite covariance gives a NaN rotation, as LAPACK's SVD gives
+    JAX, where torch's would raise."""
+    finite = torch.isfinite(cov).all(-1).all(-1)[..., None, None]
+    u, _, vt = torch.linalg.svd(torch.where(finite, cov, torch.eye(3, dtype=cov.dtype, device=cov.device)))
+    R = torch.where(finite, u @ vt, torch.nan).to(torch.float32)
     sign = torch.where(_det3(R) < 0, -1.0, 1.0)
-    R = torch.cat([R[..., :, :2], R[..., :, 2:] * sign[..., None, None]], dim=-1)
+    return torch.cat([R[..., :, :2], R[..., :, 2:] * sign[..., None, None]], dim=-1)
+
+
+def kabsch_from_cross_covariance(cov: torch.Tensor, src_mean: torch.Tensor, dst_mean: torch.Tensor) -> torch.Tensor:
+    """Rotation from a 3x3 cross-covariance with the reference's det fix,
+    then the translation: a (..., 4, 4) f32 pose."""
+    R = rotation_from_cross_covariance(cov)
     t = dst_mean - (R @ src_mean[..., :, None])[..., 0]
     return se3.from_rt(R, t)
 

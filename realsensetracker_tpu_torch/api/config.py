@@ -1,11 +1,17 @@
-"""Tracker configuration.
+"""Configuration dataclasses.
 
-Port of the fields of realsensetracker_tpu/api/config.py that the ported
-methods read ("projective", "keyframe", "model", "icp"), plus the torch
-device the tracker runs on. ``AlignConfig`` holds the three fields of the
-JAX one (the reference's RsAlignAppSettings) that the cloud tracker reads,
-with their defaults; the others come with the GICP, FPFH and
-robust-global ports that read them.
+Port of realsensetracker_tpu/api/config.py for the ported methods
+("projective", "keyframe", "model", "icp", "gicp") and the pairwise
+pipelines of ``models``, plus the torch device the tracker runs on.
+Defaults reproduce the reference's settings:
+
+* AlignConfig mirrors RsAlignAppSettings (rs_align_app.cpp:21-31):
+  voxel_size 0.05, normal_k 16, feature_radius 0.5, lowe_ratio 0.9 and the
+  init_with_fpfh / refine_with_icp / use_robust switches;
+* icp_max_iter 128 (rs_replay_app.cpp:251, rs_align_app.cpp:303);
+* GICP: 16 outer rounds (align_gicp.cpp:107), Huber delta 0.5 (:67),
+  covariance k 32 (point_cloud_utils.cpp:104);
+* robust noise_bound 0.25 (rs_replay_app.cpp:263, rs_align_app.cpp:312).
 """
 
 from __future__ import annotations
@@ -22,8 +28,28 @@ class AlignConfig:
     """Pairwise registration settings (ref RsAlignAppSettings)."""
 
     voxel_size: float = 0.05
+    normal_k: int = 16
+    feature_radius: float = 0.5
+    lowe_ratio: float = 0.9
+    init_with_fpfh: bool = True
+    refine_with_icp: bool = True
+    use_robust: bool = False  # 'use_teaser' in the reference
     icp_max_iter: int = 128
+    fpfh_max_neighbors: int = 64  # kNN cap on the radius ball; 0 = auto-size
+    # to the densest true ball (exact radiusSearch parity, fpfh.cpp:133-147)
+    noise_bound: float = 0.25
     cloud_capacity: int = 8192  # fixed capacity after voxel downsample
+
+
+@dataclass
+class GicpConfig:
+    """align_gicp's keyword arguments, with the reference's defaults."""
+
+    max_outer: int = 16  # align_gicp.cpp:107
+    inner_iters: int = 8
+    cov_k: int = 32  # point_cloud_utils.cpp:104
+    use_gicp_cov: bool = False  # align_gicp.cpp:121-123 passes false
+    huber_delta: float = 0.5  # align_gicp.cpp:67
 
 
 @dataclass
@@ -31,9 +57,10 @@ class TrackerConfig:
     """Streaming tracker settings."""
 
     intrinsics: camera.Intrinsics = camera.TUM_DEFAULT
-    method: str = "projective"  # "projective" | "keyframe" | "model" | "icp" (ported so far)
+    method: str = "projective"  # "projective" | "keyframe" | "model" | "icp" | "gicp" (ported so far)
     projective: ProjectiveIcpConfig = ProjectiveIcpConfig()
     align: AlignConfig = field(default_factory=AlignConfig)
+    gicp: GicpConfig = field(default_factory=GicpConfig)
     min_inlier_fraction: float = 0.2
     map_capacity: int = 0  # projective: world-map capacity (0 = off); model: model capacity
     map_voxel_size: float = 0.05  # rs_replay_app.cpp:178

@@ -2,16 +2,20 @@
 
 Port of realsensetracker_tpu/api/tracker.py for methods "projective"
 (with the world map when ``map_capacity > 0``), "keyframe", "model"
-(frame-to-model) and "icp" (the cloud tracker). The other methods raise
-NotImplementedError naming the ROADMAP item that ports them.
+(frame-to-model), and "icp" and "gicp" (the cloud tracker, GNC-ICP or
+GICP). The other methods raise NotImplementedError naming the ROADMAP item
+that ports them.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
 
 from realsensetracker_tpu_torch import device as device_mod
+from realsensetracker_tpu_torch.align import gicp as gicp_mod
 from realsensetracker_tpu_torch.align import icp as icp_mod
 from realsensetracker_tpu_torch.api.config import TrackerConfig
 from realsensetracker_tpu_torch.data.depth_units import to_meters_np
@@ -24,7 +28,6 @@ from realsensetracker_tpu_torch.tracking.trajectory import Trajectory
 
 # Methods of the JAX facade and the ROADMAP queue 1 item that ports each.
 _NOT_PORTED = {
-    "gicp": "item 7 (align/gicp, the GICP half of the _CloudTracker)",
     "rgbd": "item 8 (align/rgbd, tracking/rgbd)",
     "tsdf": "item 10 (mapping/tsdf, tracking/tsdf_tracker)",
 }
@@ -70,7 +73,7 @@ class Tracker:
                 device=self.config.device,
                 **kw,
             )
-        elif method == "icp":
+        elif method in ("icp", "gicp"):
             self._impl = _CloudTracker(self.config)
         else:
             raise ValueError(f"unknown tracking method: {method}")
@@ -133,33 +136,42 @@ class Tracker:
         self.trajectory.save_tum(path)
 
 
-def _cloud_step(depth, prev, pose, *, intr, voxel_size, capacity, icp_max_iter):
-    """One cloud-tracker frame (unproject + voxel downsample + GNC-ICP onto
-    the previous cloud + pose composition): (curr_cloud, new_pose (4,4),
-    relative (4,4), stats (18,)) with stats = [cost, ok, new_pose(16)], all
-    on the device."""
-    curr = frame_cloud(depth, intr, voxel_size, capacity)
-    out = icp_mod.align_icp(curr, prev, icp_max_iter)
-    rel = out.transform
-    ok = torch.isfinite(rel).all() & out.success
+def _cloud_step(depth, prev, pose, config: TrackerConfig):
+    """One cloud-tracker frame (unproject + voxel downsample + GNC-ICP or
+    GICP onto the previous cloud + pose composition): (curr_cloud, new_pose
+    (4,4), relative (4,4), stats (18,)) with stats = [cost, ok,
+    new_pose(16)], all on the device."""
+    align = config.align
+    curr = frame_cloud(depth, config.intrinsics, align.voxel_size, align.cloud_capacity)
+    if config.method == "icp":
+        out = icp_mod.align_icp(curr, prev, align.icp_max_iter)
+        rel, cost = out.transform, out.mean_cost
+        ok = torch.isfinite(rel).all() & out.success
+    else:
+        out = gicp_mod.align_gicp(curr, prev, **dataclasses.asdict(config.gicp))
+        rel, cost = out.transform, out.cost
+        # A degenerate solve leaves a finite identity with cost inf: gate on
+        # the cost and the valid count too, or an empty frame would become
+        # the reference.
+        ok = torch.isfinite(rel).all() & torch.isfinite(cost) & (out.num_valid >= 3)
     # accumulate = compose + SE(3) projection: a raw compose would let f32
     # rotation drift grow without bound over a long stream.
     new_pose = torch.where(ok, se3.accumulate(pose, rel), pose)
-    stats = torch.cat([torch.stack([out.mean_cost, ok.to(torch.float32)]), new_pose.reshape(-1)])
+    stats = torch.cat([torch.stack([cost, ok.to(torch.float32)]), new_pose.reshape(-1)])
     return curr, new_pose, rel, stats
 
 
 class _CloudTracker:
     """The reference replay loop (rs_replay_app.cpp:244-273) on
-    voxel-downsampled clouds: each frame GNC-ICPs onto the previous frame's
-    cloud; a failure keeps the pose and the previous cloud. One host
-    transfer per frame. The cloud is the JAX facade's
-    ``_fused_depth_to_cloud``: the valid pixels of a one-level source
-    pyramid are exactly frame_cloud's."""
+    voxel-downsampled clouds: each frame registers onto the previous
+    frame's cloud by GNC-ICP ("icp") or GICP ("gicp"); a failure keeps the
+    pose and the previous cloud. One host transfer per frame. The cloud is
+    the JAX facade's ``_fused_depth_to_cloud``: the valid pixels of a
+    one-level source pyramid are exactly frame_cloud's."""
 
     def __init__(self, config: TrackerConfig):
-        if config.method != "icp":
-            raise ValueError(f"the ported cloud tracker runs method='icp', not {config.method!r}")
+        if config.method not in ("icp", "gicp"):
+            raise ValueError(f"the cloud tracker runs method='icp' or 'gicp', not {config.method!r}")
         self.config = config
         self.device = device_mod.resolve(config.device)
         self._prev = None
@@ -186,10 +198,7 @@ class _CloudTracker:
             self._index += 1
             return res
 
-        curr, new_pose, rel, stats = _cloud_step(
-            depth, self._prev, self._pose, intr=cfg.intrinsics, voxel_size=cfg.align.voxel_size,
-            capacity=cfg.align.cloud_capacity, icp_max_iter=cfg.align.icp_max_iter,
-        )
+        curr, new_pose, rel, stats = _cloud_step(depth, self._prev, self._pose, cfg)
         s = stats.cpu().numpy()  # the frame's one host transfer
         cost, ok = float(s[0]), bool(s[1] > 0.5)
         if ok:

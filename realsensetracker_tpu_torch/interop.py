@@ -16,7 +16,7 @@ import torch
 
 from realsensetracker_tpu_torch import device as device_mod
 from realsensetracker_tpu_torch.align.projective import ProjectiveIcpConfig
-from realsensetracker_tpu_torch.api.config import AlignConfig, TrackerConfig
+from realsensetracker_tpu_torch.api.config import AlignConfig, GicpConfig, TrackerConfig
 from realsensetracker_tpu_torch.api.tracker import _CloudTracker
 from realsensetracker_tpu_torch.geometry.camera import Intrinsics
 from realsensetracker_tpu_torch.ops.cloud import Cloud
@@ -45,6 +45,10 @@ def align_config_from_jax(cfg) -> AlignConfig:
     return AlignConfig(**{f.name: getattr(cfg, f.name) for f in dataclasses.fields(AlignConfig)})
 
 
+def gicp_config_from_jax(cfg) -> GicpConfig:
+    return GicpConfig(**{f.name: getattr(cfg, f.name) for f in dataclasses.fields(GicpConfig)})
+
+
 def tracker_config_from_jax(cfg, device=device_mod.DEFAULT) -> TrackerConfig:
     """The fields of a JAX TrackerConfig that the port reads."""
     return TrackerConfig(
@@ -52,6 +56,7 @@ def tracker_config_from_jax(cfg, device=device_mod.DEFAULT) -> TrackerConfig:
         method=cfg.method,
         projective=icp_config_from_jax(cfg.projective),
         align=align_config_from_jax(cfg.align),
+        gicp=gicp_config_from_jax(cfg.gicp),
         min_inlier_fraction=float(cfg.min_inlier_fraction),
         map_capacity=int(cfg.map_capacity),
         map_voxel_size=float(cfg.map_voxel_size),
@@ -132,7 +137,7 @@ def frame_to_model_state_from_jax(jax_tracker, device=device_mod.DEFAULT) -> Fra
 
 
 def cloud_tracker_state_from_jax(jax_tracker, device=device_mod.DEFAULT) -> _CloudTracker:
-    """A port cloud tracker (the ``Tracker(method="icp")`` backend) that
+    """A port cloud tracker (the ``Tracker(method="icp" | "gicp")`` backend) that
     continues the JAX facade's ``_CloudTracker``: same config, previous
     cloud, pose, frame index and trajectory."""
     tracker = _CloudTracker(tracker_config_from_jax(jax_tracker.config, device))

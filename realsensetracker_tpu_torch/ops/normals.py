@@ -1,14 +1,64 @@
-"""Surface normals of an organized vertex map by central differences.
+"""Surface normals: k-NN PCA on clouds, central differences on vertex maps.
 
-Port of ``grid_normals`` from realsensetracker_tpu/ops/normals.py: the
-plain composition the CUDA level kernel (kernels/level_kernel.py) is held
-against. The kNN/PCA normals of the JAX module wait (ROADMAP queue 1
-item 7).
+Port of realsensetracker_tpu/ops/normals.py:
+
+* ``knn_pca_normals`` and ``orient_normals`` follow the reference's
+  ComputeNormals / OrientNormals (point_cloud_utils.cpp:176-216): dense
+  k-NN (self included), the neighbourhood's scatter matrix, the
+  eigenvector of its smallest eigenvalue, flipped to face a viewpoint;
+* ``grid_normals`` is the plain composition the CUDA level kernel
+  (kernels/level_kernel.py) is held against.
+
+``torch.linalg.eigh`` on a CUDA tensor checks its result on the host: one
+stream sync per call.
 """
 
 from __future__ import annotations
 
 import torch
+
+from realsensetracker_tpu_torch.ops import correspond
+from realsensetracker_tpu_torch.ops.cloud import Cloud
+
+
+def eigh(M: torch.Tensor):
+    """``torch.linalg.eigh`` of symmetric (..., 3, 3) matrices, except that
+    a matrix with a non-finite entry gets NaN eigenvalues and eigenvectors,
+    as LAPACK's gives JAX, where torch's would raise."""
+    finite = torch.isfinite(M).all(-1).all(-1)
+    eye = torch.eye(M.shape[-1], dtype=M.dtype, device=M.device)
+    vals, vecs = torch.linalg.eigh(torch.where(finite[..., None, None], M, eye))
+    return torch.where(finite[..., None], vals, torch.nan), torch.where(finite[..., None, None], vecs, torch.nan)
+
+
+def neighbourhood_scatter(points: torch.Tensor, idx: torch.Tensor, d2: torch.Tensor):
+    """Unnormalised scatter matrices (N, 3, 3) of the k-NN sets ``idx``
+    (N, k) about their centroids, and the count of real neighbours (N,).
+    Entries at _BIG distance (fewer valid candidates than k) are weighted
+    out: phantom zero rows would pull a sparse cloud's neighbourhoods
+    toward the origin."""
+    real = d2 < 1e29
+    wn = real.to(points.dtype)[..., None]
+    cnt = torch.clamp(real.sum(-1), min=1).to(points.dtype)
+    nbrs = points[idx]  # (N, k, 3)
+    ctr = (nbrs * wn).sum(-2, keepdim=True) / cnt[:, None, None]
+    delta = (nbrs - ctr) * wn
+    return torch.einsum("nki,nkj->nij", delta, delta), cnt
+
+
+def knn_pca_normals(cloud: Cloud, k: int = 16) -> torch.Tensor:
+    """Per-point PCA normals (N, 3) over the k nearest neighbours, the
+    point itself included, of unit length and arbitrary sign."""
+    idx, d2 = correspond.knn(cloud.points, cloud, k)
+    cov, _ = neighbourhood_scatter(cloud.points, idx, d2)
+    # eigh's eigenvalues ascend: column 0 belongs to the smallest.
+    return eigh(cov)[1][..., :, 0]
+
+
+def orient_normals(points: torch.Tensor, normals: torch.Tensor, viewpoint: torch.Tensor) -> torch.Tensor:
+    """Flip normals to face the viewpoint: where (p - viewpoint) . n > 0."""
+    flip = ((points - viewpoint) * normals).sum(-1) > 0
+    return torch.where(flip[..., None], -normals, normals)
 
 
 def grid_normals(vertex_map: torch.Tensor, valid: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

@@ -1,11 +1,17 @@
-"""Parity of the port's nearest neighbours, Kabsch and GNC-ICP with the JAX
-package and the NumPy oracles of tests/reference_impl.py.
+"""Parity of the port's nearest neighbours, k-NN PCA normals, Kabsch and
+GNC-ICP with the JAX package and the NumPy oracles of
+tests/reference_impl.py.
 
 The cases mirror tests/test_align_parity.py; numpy makes the inputs,
 pinned to f32, for every side. Bars: poses to 1e-4 (PARITY.md, the
-BASELINE gate), 1-NN indices exact, distances to 1e-5 relative. Kabsch and
-ICP accumulate their covariances in f64 on both sides (the suite runs JAX
-with x64).
+BASELINE gate), 1-NN and k-NN indices exact, distances to 1e-5 relative,
+normals to 1e-4. Kabsch and ICP accumulate their covariances in f64 on both
+sides (the suite runs JAX with x64).
+
+The k-NN tie cases use a 6x6x3 grid 1/16 m apart: every squared distance
+is exact in f32 whatever the summation order, so equal distances are truly
+equal and the order among them is the tie rule alone (the lower index
+first, as jax.lax.top_k and the oracles' stable argsort).
 """
 
 import jax.numpy as jnp
@@ -17,9 +23,10 @@ from realsensetracker_tpu.align import icp as jicp
 from realsensetracker_tpu.align import kabsch as jkabsch
 from realsensetracker_tpu.ops import cloud as jcloud
 from realsensetracker_tpu.ops import correspond as jcorr
+from realsensetracker_tpu.ops import normals as jnormals
 from realsensetracker_tpu_torch.align import icp, kabsch
 from realsensetracker_tpu_torch.geometry import se3
-from realsensetracker_tpu_torch.ops import cloud, correspond
+from realsensetracker_tpu_torch.ops import cloud, correspond, normals
 from tests import reference_impl as ref
 
 BAR = 1e-4
@@ -80,6 +87,89 @@ def test_knn_sorted_and_exact():
     np.testing.assert_allclose(d2.numpy(), np.take_along_axis(full, expect, 1), rtol=1e-5, atol=1e-6)
     jidx, jd2 = jcorr.knn(jnp.asarray(src), jcloud.Cloud(jnp.asarray(dst), jnp.asarray(mask)), k=5, chunk=32)
     np.testing.assert_allclose(d2.numpy(), np.asarray(jd2), rtol=1e-5, atol=1e-6)
+
+
+def _grid():
+    """108 points on a 6x6x3 grid 1/16 m apart (exact squared distances)."""
+    g = np.stack(np.meshgrid(np.arange(6), np.arange(6), np.arange(3), indexing="ij"), -1)
+    return (g.reshape(-1, 3) / 16.0).astype(np.float32)
+
+
+def test_knn_breaks_ties_by_index_as_jax():
+    """On the grid, torch.topk (the search before the repair) orders equal
+    distances its own way and even picks other neighbour sets; the repaired
+    knn returns JAX's indices and the oracle's stable order."""
+    g = _grid()
+    pc = cloud.from_points(_t(g))
+    idx, d2 = correspond.knn(_t(g), pc, k=16, chunk=40)
+    jidx, jd2 = jcorr.knn(jnp.asarray(g), jcloud.from_points(jnp.asarray(g)), k=16, chunk=40)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx))
+    np.testing.assert_array_equal(d2.numpy(), np.asarray(jd2))
+    full = ((g[:, None].astype(np.float64) - g[None]) ** 2).sum(-1)
+    np.testing.assert_array_equal(idx.numpy(), np.argsort(full, axis=1, kind="stable")[:, :16])
+    old = torch.topk(correspond._masked_sqdist(_t(g), pc), 16, dim=-1, largest=False, sorted=True).indices.numpy()
+    jidx = np.asarray(jidx)
+    assert (old != jidx).any(1).sum() > 50
+    assert sum(set(a) != set(b) for a, b in zip(old, jidx)) > 20
+
+
+@pytest.mark.parametrize("chunk", [32, 1024])
+def test_knn_self_breaks_ties_by_index_as_jax(chunk):
+    g = _grid()
+    idx, d2 = correspond.knn_self(cloud.from_points(_t(g)), k=16, chunk=chunk)
+    jidx, jd2 = jcorr.knn_self(jcloud.from_points(jnp.asarray(g)), k=16, chunk=chunk)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx))
+    np.testing.assert_array_equal(d2.numpy(), np.asarray(jd2))
+    assert (idx.numpy() != np.arange(len(g))[:, None]).all()
+
+
+def test_knn_self_masked_matches_jax():
+    """Invalid points and the query itself take _BIG; with fewer valid
+    points than k the tail is _BIG padding, in index order."""
+    pts = _cloud(25, 90)
+    mask = np.random.RandomState(26).rand(90) > 0.3
+    idx, d2 = correspond.knn_self(cloud.Cloud(_t(pts), _t(mask)), k=8, chunk=32)
+    jidx, jd2 = jcorr.knn_self(jcloud.Cloud(jnp.asarray(pts), jnp.asarray(mask)), k=8, chunk=32)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx))
+    np.testing.assert_allclose(d2.numpy(), np.asarray(jd2), rtol=1e-5, atol=1e-6)
+    sparse = np.zeros(40, bool)
+    sparse[:5] = True
+    idx, d2 = correspond.knn_self(cloud.Cloud(_t(pts[:40]), _t(sparse)), k=8)
+    jidx, _ = jcorr.knn_self(jcloud.Cloud(jnp.asarray(pts[:40]), jnp.asarray(sparse)), k=8)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx))
+    assert (d2.numpy()[:5, 4:] >= 1e29).all()
+
+
+# --- k-NN PCA normals ---------------------------------------------------------
+
+
+@pytest.mark.parametrize("n,k", [(80, 8), (200, 16)])
+def test_knn_pca_normals_match_reference_and_jax(n, k):
+    """Unit normals along the smallest principal axis (sign free), faced to
+    the viewpoint by orient_normals, as the oracle and JAX."""
+    pts = _cloud(27 + n, n, scale=0.5)
+    got = normals.knn_pca_normals(cloud.from_points(_t(pts)), k=k).numpy()
+    jgot = np.asarray(jnormals.knn_pca_normals(jcloud.from_points(jnp.asarray(pts)), k=k))
+    oracle = ref.compute_normals_np(pts, k=k)
+    for other in (jgot, oracle):  # generic clouds: a simple smallest eigenvalue
+        np.testing.assert_allclose(np.abs((got * other).sum(-1)), 1.0, atol=BAR)
+    view = np.array([0.0, 0.0, -2.0], np.float32)
+    oriented = normals.orient_normals(_t(pts), _t(got), _t(view)).numpy()
+    np.testing.assert_allclose(oriented, ref.orient_normals_np(pts, jgot, view), atol=BAR)
+    np.testing.assert_array_equal(
+        oriented, np.asarray(jnormals.orient_normals(jnp.asarray(pts), jnp.asarray(got), jnp.asarray(view))))
+    assert (((pts - view) * oriented).sum(-1) <= 0).all()
+
+
+def test_knn_pca_normals_weight_out_padding():
+    """Fewer valid points than k: the _BIG padding rows carry no weight."""
+    pts = np.zeros((32, 3), np.float32)
+    pts[:6] = np.array([[0, 0, 1], [0.1, 0, 1], [0, 0.1, 1], [0.1, 0.1, 1], [0.05, 0.02, 1], [0.02, 0.07, 1]])
+    mask = np.arange(32) < 6
+    got = normals.knn_pca_normals(cloud.Cloud(_t(pts), _t(mask)), k=8).numpy()[:6]
+    jgot = np.asarray(jnormals.knn_pca_normals(jcloud.Cloud(jnp.asarray(pts), jnp.asarray(mask)), k=8))[:6]
+    np.testing.assert_allclose(np.abs(got[:, 2]), 1.0, atol=1e-6)  # the plane z = 1
+    np.testing.assert_allclose(np.abs((got * jgot).sum(-1)), 1.0, atol=1e-6)
 
 
 def test_pairwise_sqdist_matches_jax():

@@ -52,3 +52,19 @@ def pair(intr, twist, seed=0):
 
 def j32(a):
     return jnp.asarray(np.asarray(a, np.float32))
+
+
+def twist_gap(Ta, Tb) -> float:
+    """Max |twist| of Ta^-1 Tb for two 4x4 poses (numpy, JAX or torch)."""
+    Ta, Tb = np.asarray(Ta, np.float64), np.asarray(Tb, np.float64)
+    return se3.log(torch.from_numpy((np.linalg.inv(Ta) @ Tb).astype(np.float32))).abs().max().item()
+
+
+def pose(twist) -> np.ndarray:
+    """The f32 (4, 4) pose exp(twist) of a 6-vector [v, w]."""
+    return se3.exp(torch.tensor(twist, dtype=torch.float32)).numpy()
+
+
+def apply_pose(T, pts) -> np.ndarray:
+    """f32 points (N, 3) moved by a (4, 4) pose, the product in f64."""
+    return (pts.astype(np.float64) @ T[:3, :3].T.astype(np.float64) + T[:3, 3]).astype(np.float32)
