@@ -28,6 +28,9 @@ need for JAX. Phases, one JSON line each:
                    0.1% of P, rmse within 1e-4 relative, a second launch
                    bit-identical, and pair 1 alone (B=1) bit-identical to
                    its row of the B=4 launch.
+  4b. gn_round_large -- the same checks at P = 8193 and 16384, above the
+                   8192 points gn_round keeps in registers (it streams each
+                   point's plane row through a scratch buffer there).
   5. register   -- register_batch on 64 pairs and register_batch_chunked on
                    1024 pairs (chunk 512) at 640x480 with the default
                    ProjectiveIcpConfig, against known twists.
@@ -60,7 +63,8 @@ need for JAX. Phases, one JSON line each:
                    frames of phase 8d, with the same checks.
                    Phases 8b-8e also print host ms/frame medians, device
                    syncs and copies per frame (profiler trace) and peak
-                   device memory.
+                   device memory; 8c-8e also the op each sync and copy
+                   comes from (sync_ops, a CPU + CUDA trace of one frame).
   8f. align_pair -- get_pipeline("gicp"), ("fpfh-kabsch-icp") and
                    ("robust-global") on the 8192-point voxel cloud of one
                    640x480 frame and that cloud moved by a known twist,
@@ -75,16 +79,30 @@ need for JAX. Phases, one JSON line each:
                    truncation flag, ms, syncs and copies per pair, the GNC
                    and peel rounds, peak memory, and (no bar) the truth
                    gaps between two frames' own clouds.
+  8g. rgbd      -- Tracker(method="rgbd") (default RgbdIcpConfig) over 10
+                   640x480 RGB-D frames with u8 color: every frame succeeds,
+                   ATE rmse < 0.02 m, the first 3 frames within 1e-4 (twist)
+                   of the CPU run; gn_system launches sum(cfg.iters) + 1 per
+                   tracked frame, gn_round none; RgbdKeyframeTracker's
+                   process_window(window=8) equals its per-frame process; one
+                   device-to-host copy per frame and per window (profiler
+                   trace); host ms/frame, device kernels per frame.
   9. timing     -- downsample, level and GN kernels vs their plain versions
                    at B=512 (640x480, L=4; per level shape; gn_round also at
-                   B=1, level 0, the trackers' shape), in turns, and
+                   B=1, level 0, the trackers' shape, and at level 0 with
+                   8192 and 16384 points, register and streamed), in turns, and
                    register_batch_chunked pairs/s on 2048 pairs, chunk 512;
+                   phase gn_system: gn_system (one association and the 6x6
+                   system, no solve) against its plain version at B=512 and
+                   B=1 on the four level shapes -- H and b within 1e-5 of
+                   trace(H), ok_count equal, wsse and wsum within 1e-5
+                   relative, two launches bit-identical -- and timed;
                    ops.correspond.k_smallest (the tie-stable k-NN) against
                    a stable sort of each row at the k-NN shapes of GICP and
                    FPFH.
 
 Each main path (register, register_normal_space, tracker, keyframe,
-world_map, model, icp, gicp, align_pair) runs with every launch count set
+world_map, model, icp, gicp, align_pair, rgbd) runs with every launch count set
 to 0 just before it and read just after; a kernel the path runs must have
 launched there, and the cloud paths (model, icp, gicp, align_pair), which
 run no kernel of their own, must have launched none. Then the kernels line, with each kernel's bound (the
@@ -98,6 +116,7 @@ again with glibc's large blocks kept on the heap (MALLOC_ENV).
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import statistics
@@ -121,6 +140,7 @@ MAP_COUNT_BAR = 0.01  # world map count, CUDA vs CPU, relative
 MODEL_TRUTH_BAR = 0.05  # tests/test_tracking.py:249-251
 CLOUD_CPU_BAR = 1e-3  # model / icp / gicp twist, CUDA vs CPU, first 3 frames; pipelines
 PIPELINE_TRUTH_BAR = 5e-3  # gicp and fpfh-kabsch-icp vs the known twist (tests/test_api_cli.py:97)
+SYSTEM_BAR = 1e-5  # gn_system's H and b vs the plain version, of trace(H)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM peak HBM3 bandwidth
 F32_FLOPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
@@ -138,6 +158,8 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
     # sublane_gather :79) and the reduction-layout probe (reshape_cross_lane
     # :91) of the fused GN step that Mosaic could not lower.
     "gn_round": ("realsensetracker_tpu_torch/csrc/gn_step.cu", "tools/tpu/mosaic_probe5.py:53,91"),
+    # The same probes, for the unsolved system of the joint RGB-D step.
+    "gn_system": ("realsensetracker_tpu_torch/csrc/gn_step.cu", "tools/tpu/mosaic_probe5.py:53,91"),
 }
 
 
@@ -172,6 +194,7 @@ def main() -> None:
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; needs a CUDA card")
 
     from realsensetracker_tpu_torch.align import projective, robust_global
+    from realsensetracker_tpu_torch.align.rgbd import RgbdIcpConfig
     from realsensetracker_tpu_torch.api import AlignConfig, Tracker, TrackerConfig
     from realsensetracker_tpu_torch.data import synthetic
     from realsensetracker_tpu_torch.geometry import camera, se3
@@ -182,6 +205,7 @@ def main() -> None:
     from realsensetracker_tpu_torch.parallel import batched
     from realsensetracker_tpu_torch.tracking import trajectory
     from realsensetracker_tpu_torch.tracking.frame_to_model import frame_cloud
+    from realsensetracker_tpu_torch.tracking.keyframe_rgbd import RgbdKeyframeTracker
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -237,10 +261,12 @@ def main() -> None:
             main_launches[k] += v
         return got
 
-    def check_counts(got, what, levels, gn_rounds, pyramids):
+    def check_counts(got, what, levels, gn_rounds, pyramids, systems=0):
         """levels: level-kernel launches; gn_rounds: association rounds;
-        pyramids: downsample launches (one per pyramid or source-level set)."""
-        want = {"downsample_levels": pyramids, "build_level_packed": levels, "gn_round": gn_rounds}
+        pyramids: downsample launches (one per pyramid or source-level set);
+        systems: gn_system launches (joint RGB-D steps)."""
+        want = {"downsample_levels": pyramids, "build_level_packed": levels, "gn_round": gn_rounds,
+                "gn_system": systems}
         check(got == want, f"{what}: launches {got}, expected {want}")
 
     def bound(nbytes, flops):
@@ -257,7 +283,8 @@ def main() -> None:
     ptxas = {}
     for src in sources:
         log = (build.library_path(src).parent / "build.log").read_text()
-        ptxas[src] = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
+        ptxas[src] = [ln.strip() for ln in log.splitlines()
+                      if "registers" in ln or "spill" in ln or "Compiling entry function" in ln]
     emit("build", seconds=build_s, ptxas=ptxas)
 
     def holes(d, frac=0.05):
@@ -369,10 +396,16 @@ def main() -> None:
     odd, d_odd = odd_shapes[0]
     d_src = torch.stack([synthetic.render_depth(odd, T, scene) for T in se3.compose(poses4, moved)])
     gn_cases.append(compare_gn(*gn_inputs(levels_of(d_odd)[0], levels_of(d_src)[0], odd, 2048, moved), odd))
-    cap = gn_step.MAX_POINTS  # four points per thread
+    cap = gn_step.REGISTER_POINTS  # four points per thread
     gn_cases.append(compare_gn(*gn_inputs(levels_of(frames4)[0], levels_of(src4)[0], intr, cap, moved), intr))
     emit("gn_kernel", bars={"twist": GN_TWIST_BAR, "count_of_P": GN_COUNT_BAR, "rmse_rel": GN_RMSE_BAR},
          cases=gn_cases)
+
+    # ---- 4b. gn_round above the register path ----------------------------
+    large = [compare_gn(*gn_inputs(levels_of(frames4)[0], levels_of(src4)[0], intr, p, moved), intr)
+             for p in (cap + 1, 2 * cap)]
+    emit("gn_round_large", bars={"twist": GN_TWIST_BAR, "count_of_P": GN_COUNT_BAR, "rmse_rel": GN_RMSE_BAR},
+         cases=large)
 
     # ---- 5. batched registration (main path) -----------------------------
     scale = torch.tensor([0.02, 0.02, 0.02, 0.015, 0.015, 0.015], device=dev)
@@ -595,6 +628,27 @@ def main() -> None:
                         for e in events)
         return copies, device_us / 1e3 / n
 
+    def sync_sources(run):
+        """The op each host sync and device-to-host copy of one call of run()
+        comes from, from a CPU + CUDA trace: {"runtime call <- outermost aten
+        op > ... > innermost": count}."""
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        out = {}
+        for e in prof.events():
+            if e.name not in ("cudaStreamSynchronize", "cudaMemcpyAsync", "cudaMemcpy"):
+                continue
+            chain, parent = [], e.cpu_parent
+            while parent is not None:
+                if parent.name.startswith("aten::"):
+                    chain.append(parent.name)
+                parent = parent.cpu_parent
+            key = f"{e.name} <- {' > '.join(reversed(chain[-3:] if len(chain) > 3 else chain))}"
+            out[key] = out.get(key, 0) + 1
+        return out
+
     def trace_frame(tracker_, frames_):
         """trace_calls over tracker_.process of each of frames_."""
         return trace_calls(lambda i: tracker_.process(frames_[i]), len(frames_))
@@ -661,9 +715,10 @@ def main() -> None:
             check(map_points > 100, f"model: {map_points} map points")
             fields = {"truth_twist_gap": truth_gap, "map_points": map_points}
         copies_, dev_ms_ = trace_frame(trk, frames_[-2:])
+        sync_ops_ = sync_sources(lambda: trk.process(frames_[-1]))
         emit(name, frames=n_frames, twist_vs_cpu_3=vs_cpu, launches=launches_, **fields,
              host_ms_per_frame_median=statistics.median(ms_[1:]), device_ms_per_frame=dev_ms_,
-             copies_and_syncs_per_frame=copies_, peak_mem_GB=peak_, card=card)
+             copies_and_syncs_per_frame=copies_, sync_ops=sync_ops_, peak_mem_GB=peak_, card=card)
 
     # ---- 8f. the pairwise pipelines (main path) ----------------------------
     # One frame's 8192-point voxel cloud and that cloud moved by a known
@@ -694,6 +749,41 @@ def main() -> None:
         return se3.log(se3.compose(se3.inverse(T_true), T.to(T_true.device))).abs().max().item()
 
     frame_pair = (src_cloud, dst_cloud)
+
+    def robust_stages(pair_in, device):
+        """robust-global's steps on one device, AlignConfig defaults: the
+        FPFH features, mutual matches, the max k-core, GNC rounds and pose."""
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            downs = [voxel.downsample_voxel(Cloud(c.points.to(device), c.mask.to(device)), 0.05) for c in pair_in]
+            feats = [fpfh.compute_fpfh(c, torch.zeros(3, device=device)) for c in downs]
+        match_idx, keep = robust_global.mutual_matches(feats[0], feats[1], downs[0].mask, downs[1].mask)
+        p, q = downs[0].points, downs[1].points[match_idx]
+        compat = (robust_global._pairwise_dist(p) - robust_global._pairwise_dist(q)).abs() <= 0.5
+        core = robust_global.max_kcore(compat & keep[:, None] & keep[None, :], keep)
+        robust_global.ITERATIONS.update(peel=0, gnc=0)
+        rr = robust_global.register_robust(*downs, *feats)
+        return {"downs": downs, "feats": [f.cpu() for f in feats], "match_idx": match_idx.cpu(), "keep": keep.cpu(),
+                "core": core.cpu(), "gnc": robust_global.ITERATIONS["gnc"], "T": rr.transform.cpu()}
+
+    def robust_stages_vs_cpu(pair_in):
+        """Where the card's robust-global parts from the same code on the
+        CPU: features, then (on the card's own features, on the CPU) the
+        mutual matches, the k-core, the GNC rounds and the pose."""
+        card_, cpu_ = robust_stages(pair_in, dev), robust_stages(pair_in, "cpu")
+        fd = [(a - b).abs().amax(-1) for a, b in zip(card_["feats"], cpu_["feats"])]
+        d_cpu = [Cloud(c.points.cpu(), c.mask.cpu()) for c in card_["downs"]]
+        idx_same, keep_same = robust_global.mutual_matches(*card_["feats"], d_cpu[0].mask, d_cpu[1].mask)
+        k_card, k_cpu = card_["keep"], cpu_["keep"]
+        return {
+            "fpfh_rows_over_1e-3": [int((x > 1e-3).sum()) for x in fd], "fpfh_max_abs": [x.max().item() for x in fd],
+            "mutual_kept": [int(k_card.sum()), int(k_cpu.sum())], "kept_equal": bool(torch.equal(k_card, k_cpu)),
+            "kept_equal_on_card_features": bool(torch.equal(keep_same, k_card)
+                                                and torch.equal(idx_same[k_card], card_["match_idx"][k_card])),
+            "kcore": [int(card_["core"].sum()), int(cpu_["core"].sum())],
+            "kcore_equal": bool(torch.equal(card_["core"], cpu_["core"])), "gnc_rounds": [card_["gnc"], cpu_["gnc"]],
+            "truth_gap": [truth_gap(card_["T"], T_known.cpu()), truth_gap(cpu_["T"], T_known.cpu())],
+        }
     pipelines = (  # (label, registry name, factory overrides, inputs, truth bar, CPU bar; None: no run or bar)
         ("gicp", "gicp", {}, frame_pair, PIPELINE_TRUTH_BAR, CLOUD_CPU_BAR),
         ("fpfh-kabsch-icp", "fpfh-kabsch-icp", {}, frame_pair, None, CLOUD_CPU_BAR),
@@ -748,6 +838,8 @@ def main() -> None:
                        num_correspondences=int(rr.num_correspondences), num_inliers=int(rr.num_inliers),
                        rotation_inlier_fraction=float(rr.rotation_inlier_fraction))
             failures += [] if rr.valid else [f"align_pair {label}: not valid"]
+            if pair_in is frame_pair:
+                row["stages_vs_cpu"] = robust_stages_vs_cpu(pair_in)
         failures += [f"align_pair {label}: {what}" for bad, what in (
             (any(n != 0 for n in launches_.values()), f"a kernel launched: {launches_}"),
             (not bool(torch.isfinite(out.transform).all()), "non-finite transform"),
@@ -758,6 +850,103 @@ def main() -> None:
         pipe_rows[label] = row
     emit("align_pair", points=int(src_cloud.mask.sum().item()), pipelines=pipe_rows, card=card)
     check(not failures, "; ".join(failures))
+
+    # ---- 8g. RGB-D tracking (main path) ------------------------------------
+    # Tracker(method="rgbd") with the default RgbdIcpConfig, fitted to three
+    # levels at 640x480: per tracked frame one target pyramid (one
+    # downsample launch, a level-kernel launch per level), one source
+    # depth chain (one downsample launch) and sum(iters) + 1 joint steps of
+    # one gn_system launch each (the last takes the statistics at the
+    # returned pose). u8 color goes through the facade's _as_gray.
+    rgbd_cfg = projective.fit_levels(RgbdIcpConfig(), intr.height, intr.width)
+    rgbd_levels, rgbd_steps = len(rgbd_cfg.iters), sum(rgbd_cfg.iters) + 1
+    n_rgbd = 10
+    rgbd_depths, rgbd_colors, rgbd_poses = synthetic.render_trajectory_rgbd(intr, n_rgbd, seed=0, device=dev)
+    colors8 = [np.clip(c * 255, 0, 255).astype(np.uint8) for c in rgbd_colors.cpu().numpy()]
+    rgbd_tcfg = TrackerConfig(intrinsics=intr, method="rgbd", device="cuda")
+    warm = Tracker(rgbd_tcfg)  # library initialisation, outside every count and time
+    for i in range(2):
+        warm.process(rgbd_depths[i], color=colors8[i])
+    rgbd_trk = Tracker(rgbd_tcfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    rgbd_res, rgbd_ms = [], []
+    for i in range(n_rgbd):
+        t0 = time.perf_counter()
+        rgbd_res.append(rgbd_trk.process(rgbd_depths[i], float(i), color=colors8[i]))  # ends in a host transfer
+        rgbd_ms.append((time.perf_counter() - t0) * 1e3)
+    rgbd_launches = read_counts()
+    rgbd_peak = torch.cuda.max_memory_allocated() / 1e9
+    check_counts(rgbd_launches, "rgbd", rgbd_levels * n_rgbd, 0, 2 * n_rgbd - 1, rgbd_steps * (n_rgbd - 1))
+    check(all(r.success for r in rgbd_res), "rgbd: a frame failed")
+    rgbd_ate = ate_of(rgbd_trk.trajectory, rgbd_poses)
+    check(rgbd_ate["rmse"] < ATE_BAR, f"rgbd: ATE rmse {rgbd_ate['rmse']} >= {ATE_BAR}")
+    rgbd_cpu = Tracker(dataclasses.replace(rgbd_tcfg, device="cpu"))
+    cpu_poses = [rgbd_cpu.process(rgbd_depths[i].cpu(), color=colors8[i]).pose for i in range(3)]
+    rgbd_vs_cpu = twist_gap(cpu_poses, [r.pose for r in rgbd_res[:3]])
+    check(rgbd_vs_cpu <= TWIST_BAR_CPU, f"rgbd: CUDA vs CPU twist {rgbd_vs_cpu} > {TWIST_BAR_CPU}")
+    # Host copies: the runtime's stream syncs (every blocking copy to or
+    # from the host is one), counted from the trace's API records; its
+    # device copy records are printed beside them, but CUPTI can drop some
+    # of those in a long trace (19 of a window's 2,817 copies in one call).
+    # The traced frames take their color on the card, so the only copy is
+    # the stats read.
+    colors8_dev = [torch.from_numpy(c).to(dev) for c in colors8[-2:]]
+    rgbd_copies, rgbd_dev_ms = trace_calls(lambda i: rgbd_trk.process(rgbd_depths[n_rgbd - 2 + i],
+                                                                       color=colors8_dev[i]), 2)
+    rgbd_syncs = rgbd_copies.get("cudaStreamSynchronize", 0)
+    rgbd_dtoh = sum(n for k, n in rgbd_copies.items() if "DtoH" in k)
+    check(rgbd_syncs == 1 and rgbd_dtoh <= 1, f"rgbd: {rgbd_syncs} host copies per frame ({rgbd_copies})")
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        rgbd_trk.process(rgbd_depths[-1], color=colors8[-1])
+        torch.cuda.synchronize()
+    rgbd_kernels = sum(e.name.startswith("cudaLaunchKernel") for e in prof.events())
+
+    # RgbdKeyframeTracker: per frame against process_window(window=8) over
+    # the same 9 frames (frame 0 seeds the keyframe), the two in turns.
+    rgbd_grays = synthetic.intensity_from_rgb(rgbd_colors)
+    kf_pf, kf_win = RgbdKeyframeTracker(intr, device=dev), RgbdKeyframeTracker(intr, device=dev)
+    kf_cfg_fit = kf_pf.cfg
+    kf_steps = sum(kf_cfg_fit.iters) + 1
+    reset_counts()
+    t0 = time.perf_counter()
+    kpf = [kf_pf.process(rgbd_depths[i], rgbd_grays[i], float(i)) for i in range(9)]
+    kpf_ms = (time.perf_counter() - t0) * 1e3 / 9
+    check_counts(read_counts(), "rgbd keyframe per frame", rgbd_levels * 9, 0, 1 + 2 * 8, kf_steps * 8)
+    reset_counts()
+    t0 = time.perf_counter()
+    kwin = [kf_win.process(rgbd_depths[0], rgbd_grays[0], 0.0)]
+    kwin += kf_win.process_window(list(rgbd_depths[1:9]), list(rgbd_grays[1:9]), [float(i) for i in range(1, 9)],
+                                  pad_to=8, truncate_at_events=False)
+    kwin_ms = (time.perf_counter() - t0) * 1e3 / 9
+    check_counts(read_counts(), "rgbd keyframe windowed", rgbd_levels * 2, 0, 1 + 2, kf_steps * 8)
+    check(len(kwin) == len(kpf) == 9, "rgbd keyframe: a frame is missing")
+    kf_pose_diff = max(float(np.abs(a.pose - b.pose).max()) for a, b in zip(kpf, kwin))
+    for a, b in zip(kpf, kwin):
+        check(a.success == b.success and a.is_new_keyframe == b.is_new_keyframe
+              and abs(a.rmse - b.rmse) < 1e-5 and abs(a.inlier_fraction - b.inlier_fraction) < 1e-5,
+              f"rgbd keyframe: frame {a.frame_index} differs between process and process_window")
+    check(kf_pose_diff <= 1e-5, f"rgbd keyframe: poses differ by {kf_pose_diff} between the modes")
+    check(all(r.success for r in kpf), "rgbd keyframe: a frame failed")
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        kf_win.process_window(list(rgbd_depths[1:9]), list(rgbd_grays[1:9]), pad_to=8, truncate_at_events=False)
+        torch.cuda.synchronize()
+    win_copies = {e.key: e.count for e in prof.key_averages() if "Memcpy" in e.key or "Synchronize" in e.key}
+    win_syncs = win_copies.get("cudaStreamSynchronize", 0)
+    win_dtoh = sum(n for k, n in win_copies.items() if "DtoH" in k)
+    check(win_syncs == 1 and win_dtoh <= 1, f"rgbd keyframe: {win_syncs} host copies in one window ({win_copies})")
+    emit("rgbd", frames=n_rgbd, config={"iters": list(rgbd_cfg.iters), "samples": rgbd_cfg.samples},
+         ate_rmse=rgbd_ate["rmse"], twist_vs_cpu_3=rgbd_vs_cpu, launches=rgbd_launches,
+         launches_per_frame={"gn_system": rgbd_steps, "build_level_packed": rgbd_levels, "downsample_levels": 2},
+         device_kernels_per_frame=rgbd_kernels, host_copies_per_frame=rgbd_syncs,
+         copies_and_syncs_per_frame=rgbd_copies,
+         host_ms_per_frame_median=statistics.median(rgbd_ms[1:]), host_ms_per_frame_max=max(rgbd_ms[1:]),
+         device_ms_per_frame=rgbd_dev_ms, peak_mem_GB=rgbd_peak,
+         keyframe={"frames": 9, "window": 8, "promotions": sum(r.is_new_keyframe for r in kpf[1:]),
+                   "pose_diff_max": kf_pose_diff, "ms_per_frame": kpf_ms, "windowed_ms_per_frame": kwin_ms,
+                   "host_copies_per_window": win_syncs, "copies_and_syncs_per_window": win_copies},
+         card=card)
 
     # ---- 9. timing (CUDA events, after warm-up) --------------------------
     def time_ms(fn, reps):
@@ -833,11 +1022,76 @@ def main() -> None:
         if gn_b1 is None:  # level 0 at B=1: the trackers' launch
             gn_b1 = time_gn(T512[:1].contiguous(), pts[:1], ok[:1], packed[:1], li, 20, 200)
     gn_bound = bound(gn_bytes, gn_flops)
+    # The streamed path: level 0 at 16384 points a pair, and at 8192 (the
+    # register path) beside it.
+    d0_, ds0_ = levels_of(dst_big[:chunk])[0], levels_of(src_big[:chunk])[0]
+    packed0 = level_kernel.build_level_packed(d0_, intr)
+    gn_by_points = []
+    for p_ in (gn_step.REGISTER_POINTS, 2 * gn_step.REGISTER_POINTS):
+        pts_, ok_ = projective.sample_depth_points(ds0_, intr, p_)
+        gn_by_points.append(time_gn(T512, pts_.transpose(1, 2).contiguous(), ok_.contiguous(), packed0, intr, 2, 10))
     emit("timing_kernel", batch=chunk, levels=per_level, kernel_ms_total=kernel_ms,
          plain_ms_total=plain_ms, card=card)
-    emit("timing_gn", batch=chunk, levels=gn_levels, b1_level0=gn_b1,
+    emit("timing_gn", batch=chunk, levels=gn_levels, b1_level0=gn_b1, level0_register_and_streamed=gn_by_points,
          total={"kernel_ms": gn_ms, "plain_ms": gn_plain_ms, "bound_ms": gn_bound[0], "bound_by": gn_bound[1]},
          card=card)
+
+    # gn_system: one association and the system at T, against its plain
+    # version (build_normal_equations' torch composition) at B=512 and B=1.
+    sys_err = 0.0
+
+    def compare_system(T, pts, ok, packed, li):
+        nonlocal sys_err
+        flat = lambda r: (r[0], r[1], *r[2])  # noqa: E731
+        got = flat(gn_step.gn_system(T, pts, ok, packed, li, cfg))
+        again = flat(gn_step.gn_system(T, pts, ok, packed, li, cfg))
+        ref = flat(gn_step.gn_system_reference(T, pts, ok, packed, li, cfg))
+        torch.cuda.synchronize()
+        what = f"gn_system at B={T.shape[0]} {packed.shape[-2]}x{packed.shape[-1]} P={pts.shape[-1]}"
+        check(all(torch.equal(a, b) for a, b in zip(got, again)), f"{what}: a second launch differs")
+        if T.shape[0] > 1:
+            alone = flat(gn_step.gn_system(T[1:2], pts[1:2], ok[1:2], packed[1:2], li, cfg))
+            check(all(torch.equal(a[0], b[1]) for a, b in zip(alone, got)), f"{what}: pair 1 depends on B")
+        trace = ref[0].diagonal(dim1=-2, dim2=-1).sum(-1).clamp_min(1e-30)[:, None]
+        h_rel = ((got[0] - ref[0]).abs().flatten(1) / trace).max().item()
+        b_rel = ((got[1] - ref[1]).abs() / trace).max().item()
+        w_rel = max(((g - r).abs() / r.abs().clamp_min(1e-30)).max().item() for g, r in zip(got[2:4], ref[2:4]))
+        check(h_rel <= SYSTEM_BAR and b_rel <= SYSTEM_BAR, f"{what}: H {h_rel}, b {b_rel} of trace(H)")
+        check(torch.equal(got[4], ref[4]), f"{what}: ok_count differs")
+        check(w_rel <= SYSTEM_BAR, f"{what}: wsse / wsum {w_rel} relative")
+        err = max((got[0] - ref[0]).abs().max().item(), (got[1] - ref[1]).abs().max().item())
+        sys_err = max(sys_err, err)
+        return {"h_of_trace": h_rel, "b_of_trace": b_rel, "wsse_wsum_rel": w_rel, "max_abs_err": err}
+
+    def time_system(T, pts, ok, packed, li, reps_p, reps_k):
+        """(row, bytes, operations): 64 B of pose and 180 B of system per
+        pair, 13 B per point, 16 B of plane row per valid point; ~40
+        operations to associate a valid point, ~105 per matched one."""
+        row = compare_system(T, pts, ok, packed, li)
+        k, p = turns(lambda: gn_step.gn_system_reference(T, pts, ok, packed, li, cfg),
+                     lambda: gn_step.gn_system(T, pts, ok, packed, li, cfg), reps_p, reps_k)
+        b, _, n = pts.shape
+        n_ok, n_match = int(ok.sum().item()), int(gn_step.gn_system(T, pts, ok, packed, li, cfg)[2][2].sum().item())
+        nbytes, flops = b * (64 + 180) + b * n * 13 + n_ok * 16, n_ok * 40 + n_match * 105
+        b_ms, b_by = bound(nbytes, flops)
+        row.update(shape=[b, *packed.shape[-2:]], points=n, kernel_ms=k, plain_ms=p, bound_ms=b_ms, bound_by=b_by)
+        return row, nbytes, flops
+
+    sys_levels, sys_b1 = [], []
+    sys_ms, sys_plain_ms, sys_bytes, sys_flops = 0.0, 0.0, 0, 0
+    for d, ds, li, count in zip(levels_of(dst_big[:chunk]), levels_of(src_big[:chunk]), level_intrs, level_samples):
+        packed = level_kernel.build_level_packed(d, li)
+        pts, ok = projective.sample_depth_points(ds, li, count)
+        pts, ok = pts.transpose(1, 2).contiguous(), ok.contiguous()
+        row, nbytes, flops = time_system(T512, pts, ok, packed, li, 5, 50)
+        sys_levels.append(row)
+        sys_ms, sys_plain_ms = sys_ms + row["kernel_ms"], sys_plain_ms + row["plain_ms"]
+        sys_bytes, sys_flops = sys_bytes + nbytes, sys_flops + flops
+        sys_b1.append(time_system(T512[:1].contiguous(), pts[:1], ok[:1], packed[:1], li, 20, 200)[0])
+    sys_bound = bound(sys_bytes, sys_flops)
+    emit("gn_system", batch=chunk, bars={"of_trace": SYSTEM_BAR, "wsse_wsum_rel": SYSTEM_BAR}, levels=sys_levels,
+         b1=sys_b1, total={"kernel_ms": sys_ms, "plain_ms": sys_plain_ms, "bound_ms": sys_bound[0],
+                           "bound_by": sys_bound[1]}, card=card)
 
     base0, base1, _ = synthetic.render_pair(
         intr, torch.tensor([0.01, -0.005, 0.01, 0.005, -0.01, 0.005]), scene
@@ -877,15 +1131,16 @@ def main() -> None:
 
     for name, n in main_launches.items():
         check(n > 0, f"the main paths never launched {name}")
-    errs = {"downsample_levels": ds_worst["abs"], "build_level_packed": max_err, "gn_round": gn_err}
+    errs = {"downsample_levels": ds_worst["abs"], "build_level_packed": max_err, "gn_round": gn_err,
+            "gn_system": sys_err}
     times = {"downsample_levels": (ds_k, ds_p), "build_level_packed": (kernel_ms, plain_ms),
-             "gn_round": (gn_ms, gn_plain_ms)}
+             "gn_round": (gn_ms, gn_plain_ms), "gn_system": (sys_ms, sys_plain_ms)}
     bounds = {"downsample_levels": ds_bound, "build_level_packed": bound(level_bytes, level_flops),
-              "gn_round": gn_bound}
+              "gn_round": gn_bound, "gn_system": sys_bound}
     # No single PyTorch call computes any of these functions (a
     # validity-aware mean over several levels, a plane table, a round of
-    # gated GNC Gauss-Newton with its 6x6 solves), so library_ms is null
-    # throughout.
+    # gated GNC Gauss-Newton with its 6x6 solves, a projective gather with
+    # its gated GNC system), so library_ms is null throughout.
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": main_launches[name], "max_abs_err": errs[name],

@@ -2,7 +2,8 @@
 
 Depth frames in, SE(3) poses out, by coarse-to-fine projective
 point-to-plane Gauss-Newton or by GNC point-to-point ICP or GICP on voxel
-clouds; pairwise cloud registration by FPFH matching or robust global
+clouds, or by joint point-to-plane + photometric Gauss-Newton on RGB-D
+frames; pairwise cloud registration by FPFH matching or robust global
 registration,
 on an NVIDIA H100 by default (or, with ``device="cpu"``, on the CPU
 through the kernels' plain PyTorch versions). The JAX package ``realsensetracker_tpu``
@@ -12,19 +13,21 @@ parity tests; the port never imports it, nor JAX.
 Layer map (each module sits at the same path as its JAX counterpart):
   geometry/   SE(3) exp/log + pinhole camera
   ops/        grid and k-NN PCA normals, depth pyramid with the planar plane
-              table; masked clouds, voxel downsample, brute-force (k-)nearest
+              table, differentiable bilinear sampling; masked clouds, voxel downsample, brute-force (k-)nearest
               neighbours, FPFH features and matching
   kernels/    hand-written CUDA kernels (sources in csrc/) + plain versions:
               the pyramid downsample, the pyramid level builder and the
-              fused Gauss-Newton step
+              fused Gauss-Newton step (a whole round, or the 6x6 system)
   align/      projective point-to-plane ICP (stride / normal-space
-              sampling), batched over a leading B; Kabsch, GNC-ICP, GICP and
-              GNC-TLS robust global registration
+              sampling), batched over a leading B; photometric and joint
+              RGB-D registration; Kabsch, GNC-ICP, GICP and GNC-TLS robust
+              global registration
   models/     the rs_align_app pipeline (align_pair) and the named pipelines
   parallel/   batched and chunked pair registration
-  data/       synthetic raycast scenes, depth-unit policy
+  data/       synthetic raycast scenes (depth and RGB-D), depth-unit policy
   tracking/   frame-to-frame (with the voxel world map), frame-to-keyframe
-              and frame-to-model trackers, trajectory I/O and ATE/RPE
+              and frame-to-model trackers, their RGB-D frame and keyframe
+              counterparts, trajectory I/O and ATE/RPE
   api/        Tracker facade + TrackerConfig
   device.py   the default device ("cuda") and its check
   interop.py  carries configuration and tracker state across from JAX

@@ -10,9 +10,13 @@ Port of realsensetracker_tpu/align/kabsch.py, with the reference's quirks
 * the reflection fix flips the third column of the composed R = U V^T;
 * t = dst_mean - R @ src_mean.
 
-``torch.linalg.svd`` on a CUDA tensor checks its result on the host, one
-device-to-host copy per call; it stays for exact semantics on
-rank-deficient covariances.
+``torch.linalg.svd`` on a CUDA tensor stalls the host twice per call, both
+inside the op (traced on an H100 by chip_smoke.py's sync_ops, phases icp
+and model): cuSOLVER's gesvdj convergence check copies its status to
+pageable host memory (``aten::to`` in ``aten::_linalg_svd``), and the
+result check reads the info (``aten::_linalg_check_errors``). So cloud ICP
+makes two syncs per iteration. The SVD stays for exact semantics on
+rank-deficient covariances; a closed-form 3x3 SVD would remove both.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ def rotation_from_cross_covariance(cov: torch.Tensor) -> torch.Tensor:
     A non-finite covariance gives a NaN rotation, as LAPACK's SVD gives
     JAX, where torch's would raise."""
     finite = torch.isfinite(cov).all(-1).all(-1)[..., None, None]
+    # Two host syncs on a CUDA tensor (module docstring).
     u, _, vt = torch.linalg.svd(torch.where(finite, cov, torch.eye(3, dtype=cov.dtype, device=cov.device)))
     R = torch.where(finite, u @ vt, torch.nan).to(torch.float32)
     sign = torch.where(_det3(R) < 0, -1.0, 1.0)

@@ -8,8 +8,10 @@ se(3). Where JAX vmapped a single pair, every function here carries the
 batch dimension B itself; where JAX used fori_loop, a Python loop runs.
 On CUDA tensors each association round -- the association, every inner
 iteration's reduction, damped solve and SE(3) update -- is one launch of
-kernels/gn_step.gn_round; CPU tensors take its plain version, the
-associate_planes_t, normal_equations_fixed_t and solve_update below.
+kernels/gn_step.gn_round, and build_normal_equations (the unsolved system
+of the joint RGB-D step) one launch of kernels/gn_step.gn_system; CPU
+tensors take their plain versions, the associate_planes_t,
+normal_equations_fixed_t and solve_update below.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ class ProjectiveIcpConfig(NamedTuple):
     iters: tuple[int, ...] = (3, 3, 3, 2)  # association rounds per level,
     # coarse -> fine; 4 levels (coarsest 80x60 at 640x480)
     inner_iters: int = 2  # GN steps per association (fixed planes)
-    samples: int = 2048  # source points sampled at the FINEST level (<= 8192 on the card)
+    samples: int = 2048  # source points sampled at the FINEST level
     sample_mode: str = "stride"  # "stride" | "normal_space" (BASELINE config 3)
     coarse_sample_divisor: int = 4  # level l uses samples / divisor**l
     min_samples: int = 256  # floor for the coarsest levels
@@ -214,6 +216,34 @@ def normal_equations_fixed_t(T, src_pts_t, n_t, d_plane, assoc_ok, cfg: Projecti
     bvec = torch.matmul(Jw, r[:, :, None])[..., 0]
     aux = ((w * r * r).sum(-1), w.sum(-1), ok.sum(-1, dtype=torch.int32))
     return H, bvec, aux
+
+
+def associate_planes(
+    T, src_pts, src_ok, dst_level: PyramidLevel, intr: camera.Intrinsics, cfg: ProjectiveIcpConfig
+):
+    """Point-major associate_planes_t: src_pts (B,P,3) -> (n (B,P,3),
+    d_plane (B,P), ok (B,P))."""
+    n_t, d_plane, ok = associate_planes_t(T, src_pts.transpose(1, 2), src_ok, dst_level, intr, cfg)
+    return n_t.transpose(1, 2), d_plane, ok
+
+
+def normal_equations_fixed(T, src_pts, n, d_plane, assoc_ok, cfg: ProjectiveIcpConfig):
+    """Point-major normal_equations_fixed_t: src_pts and n are (B,P,3)."""
+    return normal_equations_fixed_t(T, src_pts.transpose(1, 2), n.transpose(1, 2), d_plane, assoc_ok, cfg)
+
+
+def build_normal_equations(
+    T, src_pts, src_ok, dst_level: PyramidLevel, intr: camera.Intrinsics, cfg: ProjectiveIcpConfig
+):
+    """Associate and accumulate the 6x6 GN systems at poses T (B,4,4) of
+    point-major src_pts (B,P,3): (H (B,6,6), b (B,6), (wsse (B,), wsum
+    (B,), ok_count (B,) int32)), unsolved. CUDA tensors: one gn_system
+    launch; CPU tensors: its plain version, associate_planes_t ->
+    normal_equations_fixed_t."""
+    args = (T.contiguous(), src_pts.transpose(1, 2).contiguous(), src_ok.contiguous(), dst_level.packed)
+    if src_pts.is_cuda:
+        return gn_step.gn_system(*args, intr, cfg)
+    return gn_step.gn_system_reference(*args, intr, cfg)
 
 
 def solve_update(T, H, b, aux, num_samples: int, cfg: ProjectiveIcpConfig):

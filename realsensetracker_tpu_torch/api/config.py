@@ -1,7 +1,7 @@
 """Configuration dataclasses.
 
 Port of realsensetracker_tpu/api/config.py for the ported methods
-("projective", "keyframe", "model", "icp", "gicp") and the pairwise
+("projective", "keyframe", "model", "icp", "gicp", "rgbd") and the pairwise
 pipelines of ``models``, plus the torch device the tracker runs on.
 Defaults reproduce the reference's settings:
 
@@ -20,6 +20,7 @@ from dataclasses import dataclass, field
 
 from realsensetracker_tpu_torch import device as device_mod
 from realsensetracker_tpu_torch.align.projective import ProjectiveIcpConfig
+from realsensetracker_tpu_torch.align.rgbd import RgbdIcpConfig
 from realsensetracker_tpu_torch.geometry import camera
 
 
@@ -57,8 +58,9 @@ class TrackerConfig:
     """Streaming tracker settings."""
 
     intrinsics: camera.Intrinsics = camera.TUM_DEFAULT
-    method: str = "projective"  # "projective" | "keyframe" | "model" | "icp" | "gicp" (ported so far)
+    method: str = "projective"  # "projective" | "keyframe" | "model" | "icp" | "gicp" | "rgbd" (ported so far)
     projective: ProjectiveIcpConfig = ProjectiveIcpConfig()
+    rgbd: RgbdIcpConfig = RgbdIcpConfig()  # method="rgbd": the joint geometric + photometric solver
     align: AlignConfig = field(default_factory=AlignConfig)
     gicp: GicpConfig = field(default_factory=GicpConfig)
     min_inlier_fraction: float = 0.2

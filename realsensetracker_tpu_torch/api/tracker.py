@@ -2,9 +2,10 @@
 
 Port of realsensetracker_tpu/api/tracker.py for methods "projective"
 (with the world map when ``map_capacity > 0``), "keyframe", "model"
-(frame-to-model), and "icp" and "gicp" (the cloud tracker, GNC-ICP or
-GICP). The other methods raise NotImplementedError naming the ROADMAP item
-that ports them.
+(frame-to-model), "icp" and "gicp" (the cloud tracker, GNC-ICP or GICP)
+and "rgbd" (joint geometric + photometric frame-to-frame odometry, which
+takes a color or gray frame beside each depth frame). "tsdf" raises
+NotImplementedError naming the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -24,11 +25,11 @@ from realsensetracker_tpu_torch.ops.pyramid import depth_to_meters
 from realsensetracker_tpu_torch.tracking.frame_to_frame import FrameResult, FrameToFrameTracker
 from realsensetracker_tpu_torch.tracking.frame_to_model import FrameToModelTracker, frame_cloud
 from realsensetracker_tpu_torch.tracking.keyframe import KeyframeTracker
+from realsensetracker_tpu_torch.tracking.rgbd import RgbdTracker
 from realsensetracker_tpu_torch.tracking.trajectory import Trajectory
 
 # Methods of the JAX facade and the ROADMAP queue 1 item that ports each.
 _NOT_PORTED = {
-    "rgbd": "item 8 (align/rgbd, tracking/rgbd)",
     "tsdf": "item 10 (mapping/tsdf, tracking/tsdf_tracker)",
 }
 
@@ -73,6 +74,13 @@ class Tracker:
                 device=self.config.device,
                 **kw,
             )
+        elif method == "rgbd":
+            self._impl = RgbdTracker(
+                self.config.intrinsics,
+                self.config.rgbd,
+                min_inlier_fraction=self.config.min_inlier_fraction,
+                device=self.config.device,
+            )
         elif method in ("icp", "gicp"):
             self._impl = _CloudTracker(self.config)
         else:
@@ -89,10 +97,21 @@ class Tracker:
             return depth_to_meters(depth, self.config.depth_scale)
         return to_meters_np(depth, self.config.depth_scale)
 
-    def process(self, depth, timestamp: float | None = None):
+    def process(self, depth, timestamp: float | None = None, color=None):
         """One (H, W) depth frame (float meters or integer raw units) in ->
-        KeyframeResult (keyframe) or FrameResult (the other methods) out."""
-        return self._impl.process(self._ingest(depth), timestamp)
+        KeyframeResult (keyframe) or FrameResult (the other methods) out.
+
+        ``color`` feeds the photometric term of method="rgbd", which
+        requires it: an (H, W) gray image in [0, 1], or an (H, W, 3) image
+        ([0, 1] float or uint8) reduced to BT.601 luma (_as_gray). The other
+        methods ignore it.
+        """
+        depth = self._ingest(depth)
+        if self.config.method == "rgbd":
+            if color is None:
+                raise ValueError("method='rgbd' requires a color/gray frame")
+            return self._impl.process(depth, _as_gray(color), timestamp)
+        return self._impl.process(depth, timestamp)
 
     def process_window(self, depths, timestamps=None, window: int = 8):
         """Process a sequence of frames, up to ``window`` frames per host
@@ -134,6 +153,33 @@ class Tracker:
 
     def save_trajectory(self, path: str) -> None:
         self.trajectory.save_tum(path)
+
+
+_LUMA = (0.299, 0.587, 0.114)  # BT.601
+
+
+def _as_gray(color):
+    """(H, W) gray | (H, W, 3) RGB -> [0, 1] f32 luma (BT.601), a numpy
+    array for host input, a tensor on its device for a tensor.
+
+    uint8 scales by 1/255 in BOTH arities: photo_huber and photo_weight
+    are calibrated for [0, 1] intensities, so an unscaled 0-255 gray image
+    would upset the geometric/photometric balance.
+    """
+    if isinstance(color, torch.Tensor):
+        t = color.to(torch.float32)
+        if color.dtype == torch.uint8:
+            t = t / 255.0
+        if t.dim() == 2:
+            return t
+        # Python weights: a weight tensor on the card would be a host copy.
+        return (t[..., 0] * _LUMA[0] + t[..., 1] * _LUMA[1]) + t[..., 2] * _LUMA[2]
+    arr = np.asarray(color)
+    if arr.dtype == np.uint8:
+        arr = arr.astype(np.float32) / 255.0
+    if arr.ndim == 2:
+        return arr.astype(np.float32)
+    return arr.astype(np.float32) @ np.asarray(_LUMA, np.float32)
 
 
 def _cloud_step(depth, prev, pose, config: TrackerConfig):

@@ -24,6 +24,12 @@ class Intrinsics(NamedTuple):
     width: int
     height: int
 
+    def matrix(self) -> torch.Tensor:
+        """The 3x3 f32 camera matrix K."""
+        return torch.tensor(
+            [[self.fx, 0.0, self.cx], [0.0, self.fy, self.cy], [0.0, 0.0, 1.0]], dtype=torch.float32
+        )
+
     def scaled(self, factor: float) -> "Intrinsics":
         """Intrinsics of an image downscaled by `factor` (e.g. 0.5 per level)."""
         return Intrinsics(

@@ -86,10 +86,27 @@ def orthonormalize(T: torch.Tensor) -> torch.Tensor:
         C = _cofactors(R)
         det = (R[..., :, 0] * C[..., :, 0]).sum(-1)
         R = 0.5 * (R + C / det[..., None, None])
-    det = (R[..., :, 0] * _cofactors(R)[..., :, 0]).sum(-1)
-    sign = torch.where(det < 0, -1.0, 1.0)
+    sign = torch.where(_det3(R) < 0, -1.0, 1.0)
     R = torch.cat([R[..., :, :2], R[..., :, 2:] * sign[..., None, None]], dim=-1)
     return from_rt(R, translation(T))
+
+
+def orthogonalize(R: torch.Tensor) -> torch.Tensor:
+    """Project near-rotations (..., 3, 3) onto SO(3) by SVD with a
+    determinant fix that flips the third column of U before composing (the
+    Kabsch-correct nearest rotation), where orthonormalize and
+    align/kabsch.py flip a column of the composed R, as the reference does.
+    The two differ only for reflections (det < 0). torch.linalg.svd checks
+    its result on the host for a CUDA tensor: off the tracking path."""
+    u, _, vt = torch.linalg.svd(R)
+    det = _det3(torch.matmul(u, vt))
+    u = torch.cat([u[..., :, :2], u[..., :, 2:] * torch.sign(det)[..., None, None]], dim=-1)
+    return torch.matmul(u, vt)
+
+
+def _det3(R: torch.Tensor) -> torch.Tensor:
+    """det of (..., 3, 3) stacks as the first column of R . cofactors."""
+    return (R[..., :, 0] * _cofactors(R)[..., :, 0]).sum(-1)
 
 
 def accumulate(T_prev: torch.Tensor, T_delta: torch.Tensor) -> torch.Tensor:

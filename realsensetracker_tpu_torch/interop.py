@@ -16,6 +16,7 @@ import torch
 
 from realsensetracker_tpu_torch import device as device_mod
 from realsensetracker_tpu_torch.align.projective import ProjectiveIcpConfig
+from realsensetracker_tpu_torch.align.rgbd import RgbdIcpConfig
 from realsensetracker_tpu_torch.api.config import AlignConfig, GicpConfig, TrackerConfig
 from realsensetracker_tpu_torch.api.tracker import _CloudTracker
 from realsensetracker_tpu_torch.geometry.camera import Intrinsics
@@ -25,6 +26,8 @@ from realsensetracker_tpu_torch.tracking.accumulator import MapAccumulator
 from realsensetracker_tpu_torch.tracking.frame_to_frame import FrameToFrameTracker
 from realsensetracker_tpu_torch.tracking.frame_to_model import FrameToModelTracker
 from realsensetracker_tpu_torch.tracking.keyframe import KeyframeTracker
+from realsensetracker_tpu_torch.tracking.keyframe_rgbd import RgbdKeyframeTracker
+from realsensetracker_tpu_torch.tracking.rgbd import RgbdTracker
 from realsensetracker_tpu_torch.tracking.trajectory import Trajectory
 
 
@@ -41,6 +44,12 @@ def icp_config_from_jax(cfg) -> ProjectiveIcpConfig:
     return ProjectiveIcpConfig(**fields)
 
 
+def rgbd_config_from_jax(cfg) -> RgbdIcpConfig:
+    fields = {name: getattr(cfg, name) for name in RgbdIcpConfig._fields}
+    fields["iters"] = tuple(int(i) for i in cfg.iters)
+    return RgbdIcpConfig(**fields)
+
+
 def align_config_from_jax(cfg) -> AlignConfig:
     return AlignConfig(**{f.name: getattr(cfg, f.name) for f in dataclasses.fields(AlignConfig)})
 
@@ -55,6 +64,7 @@ def tracker_config_from_jax(cfg, device=device_mod.DEFAULT) -> TrackerConfig:
         intrinsics=intrinsics_from_jax(cfg.intrinsics),
         method=cfg.method,
         projective=icp_config_from_jax(cfg.projective),
+        rgbd=rgbd_config_from_jax(cfg.rgbd),
         align=align_config_from_jax(cfg.align),
         gicp=gicp_config_from_jax(cfg.gicp),
         min_inlier_fraction=float(cfg.min_inlier_fraction),
@@ -174,6 +184,63 @@ def keyframe_state_from_jax(jax_tracker, device=device_mod.DEFAULT) -> KeyframeT
         tracker._last_levels = tuple(pyramid_levels_from_numpy(jax_tracker._last_levels, device))
     if jax_tracker._last_depth is not None:
         tracker._last_depth = np.asarray(jax_tracker._last_depth)
+    tracker._fail_streak = int(jax_tracker._fail_streak)
+    tracker._fails_since_kf = int(jax_tracker._fails_since_kf)
+    tracker.last_span_failures = int(jax_tracker.last_span_failures)
+    tracker._index = int(jax_tracker._index)
+    tracker.trajectory = _trajectory(jax_tracker.trajectory)
+    return tracker
+
+
+def _rgbd_target(target, device):
+    """A JAX RGB-D target (plane-table levels, gray levels) of one frame ->
+    the port's, with B = 1."""
+    levels, grays = target
+    return tuple(pyramid_levels_from_numpy(levels, device)), tuple(_tensor(g, device)[None] for g in grays)
+
+
+def rgbd_state_from_jax(jax_tracker, device=device_mod.DEFAULT) -> RgbdTracker:
+    """A port RgbdTracker that continues the JAX RgbdTracker's stream: same
+    fitted cfg, previous target (plane-table levels and gray pyramid),
+    pose, frame index and trajectory."""
+    tracker = RgbdTracker(
+        intrinsics_from_jax(jax_tracker.intr),
+        rgbd_config_from_jax(jax_tracker.cfg),
+        min_inlier_fraction=float(jax_tracker.min_inlier_fraction),
+        device=device,
+    )
+    if jax_tracker._prev_target is not None:
+        tracker._prev_target = _rgbd_target(jax_tracker._prev_target, device)
+        tracker._pose = _tensor(jax_tracker._pose, device)
+        tracker._pose_np = np.asarray(jax_tracker._pose_np, dtype=np.float32)
+    tracker._index = int(jax_tracker._index)
+    tracker.trajectory = _trajectory(jax_tracker.trajectory)
+    return tracker
+
+
+def rgbd_keyframe_state_from_jax(jax_tracker, device=device_mod.DEFAULT) -> RgbdKeyframeTracker:
+    """A port RgbdKeyframeTracker that continues the JAX one's stream: same
+    thresholds, fitted cfg, keyframe target and pose, pose, last frame's
+    target or frame, failure bookkeeping, frame index and trajectory."""
+    tracker = RgbdKeyframeTracker(
+        intrinsics_from_jax(jax_tracker.intr),
+        rgbd_config_from_jax(jax_tracker.cfg),
+        min_inlier_fraction=float(jax_tracker.min_inlier_fraction),
+        max_translation=float(jax_tracker.max_translation),
+        max_rotation=float(jax_tracker.max_rotation),
+        min_overlap=float(jax_tracker.min_overlap),
+        max_consecutive_failures=int(jax_tracker.max_consecutive_failures),
+        device=device,
+    )
+    if jax_tracker._kf_target is not None:
+        tracker._kf_target = _rgbd_target(jax_tracker._kf_target, device)
+        tracker._kf_pose = _tensor(jax_tracker._kf_pose, device)
+        tracker._pose = _tensor(jax_tracker._pose, device)
+        tracker._pose_np = np.asarray(jax_tracker._pose_np, dtype=np.float32)
+    if jax_tracker._last_target is not None:
+        tracker._last_target = _rgbd_target(jax_tracker._last_target, device)
+    if jax_tracker._last_frame is not None:
+        tracker._last_frame = tuple(np.asarray(a, np.float32) for a in jax_tracker._last_frame)
     tracker._fail_streak = int(jax_tracker._fail_streak)
     tracker._fails_since_kf = int(jax_tracker._fails_since_kf)
     tracker.last_span_failures = int(jax_tracker.last_span_failures)

@@ -97,45 +97,151 @@ def _fused_track_window(depths, kf_levels, kf_pose, pose, streak0, fails0, thres
     ``row_valid`` ((W,) bool) marks real rows: invalid rows freeze the
     carry like the latch, which makes padded rows inert.
     """
-    dev = depths.device
-    min_inlier, max_translation, max_rotation, min_overlap = thresholds
     levels, intrs = _pyramid(depths, intr, cfg, depth_scale)
     kf_lv, kf_p, p = tuple(kf_levels), kf_pose, pose
-    streak = torch.full((), streak0, dtype=torch.int32, device=dev)
-    fails = torch.full((), fails0, dtype=torch.int32, device=dev)
-    done = torch.zeros((), dtype=torch.bool, device=dev)
+    carry = _window_carry(streak0, fails0, depths.device)
     rows = []
     for i in range(depths.shape[0]):
         frame = _frame_levels(levels, i)
-        dead = done | ~row_valid[i]
         _, rmse, inlier, new_pose, tw, ok = _track(frame, intrs, kf_lv, kf_p, p, cfg)
-        success = ok & (inlier >= min_inlier)
-        promote = success & (
-            (torch.linalg.vector_norm(tw[:3]) > max_translation)
-            | (torch.linalg.vector_norm(tw[3:]) > max_rotation)
-            | (inlier < min_overlap)
+        event_now, p, kf_p, carry, row = _window_row(
+            rmse, inlier, ok, tw, new_pose, p, kf_p, carry, row_valid[i], thresholds, max_fails, truncate
         )
-        streak1 = torch.where(success, 0, streak + 1)
-        fails1 = torch.where(success, fails, fails + 1)
-        reseed = ~success & (streak1 >= max_fails)
-        is_new_kf = promote | reseed
-        event_now = is_new_kf & ~dead
-        p1 = torch.where(success & ~dead, new_pose, p)
-        kf_p = torch.where(event_now, p1, kf_p)
         kf_lv = tuple(
             PyramidLevel(*(torch.where(event_now, a, b) for a, b in zip(new, old)))
             for new, old in zip(frame, kf_lv)
         )
-        streak2 = torch.where(dead, streak, torch.where(reseed, 0, streak1))
-        fails2 = torch.where(dead, fails, torch.where(is_new_kf, 0, fails1))
-        flags = torch.stack([t.to(torch.float32) for t in (success, is_new_kf, fails1, streak2, fails2)])
-        rows.append(torch.cat([torch.stack([rmse, inlier, ok.to(torch.float32)]), tw, p1.reshape(-1), flags]))
-        if truncate == "failures":
-            done = done | (is_new_kf & ~success)
-        elif truncate:
-            done = done | is_new_kf
-        p, streak, fails = p1, streak2, fails2
+        rows.append(row)
     return kf_lv, kf_p, p, torch.stack(rows)
+
+
+def _window_carry(streak0: int, fails0: int, device):
+    """A window's counters on the device: (fail streak, fails since the
+    keyframe, done)."""
+    return (
+        torch.full((), streak0, dtype=torch.int32, device=device),
+        torch.full((), fails0, dtype=torch.int32, device=device),
+        torch.zeros((), dtype=torch.bool, device=device),
+    )
+
+
+def _window_row(rmse, inlier, ok, tw, new_pose, p, kf_p, carry, valid, thresholds, max_fails, truncate):
+    """One frame of a window: the host's promotion and failure logic as
+    device selects. thresholds is (min_inlier_fraction, max_translation,
+    max_rotation, min_overlap); an invalid row, or any row after the carry
+    latched, changes nothing. Returns (event_now, pose, keyframe pose,
+    carry, stats row (30,)) in the layout of _fused_track_window."""
+    min_inlier, max_translation, max_rotation, min_overlap = thresholds
+    streak, fails, done = carry
+    dead = done | ~valid
+    success = ok & (inlier >= min_inlier)
+    promote = success & (
+        (torch.linalg.vector_norm(tw[:3]) > max_translation)
+        | (torch.linalg.vector_norm(tw[3:]) > max_rotation)
+        | (inlier < min_overlap)
+    )
+    streak1 = torch.where(success, 0, streak + 1)
+    fails1 = torch.where(success, fails, fails + 1)
+    reseed = ~success & (streak1 >= max_fails)
+    is_new_kf = promote | reseed
+    event_now = is_new_kf & ~dead
+    p1 = torch.where(success & ~dead, new_pose, p)
+    kf_p1 = torch.where(event_now, p1, kf_p)
+    streak2 = torch.where(dead, streak, torch.where(reseed, 0, streak1))
+    fails2 = torch.where(dead, fails, torch.where(is_new_kf, 0, fails1))
+    flags = torch.stack([t.to(torch.float32) for t in (success, is_new_kf, fails1, streak2, fails2)])
+    row = torch.cat([torch.stack([rmse, inlier, ok.to(torch.float32)]), tw, p1.reshape(-1), flags])
+    if truncate == "failures":
+        done = done | (is_new_kf & ~success)
+    elif truncate:
+        done = done | is_new_kf
+    return event_now, p1, kf_p1, (streak2, fails2, done), row
+
+
+def _read_frame(tracker, s, new_pose_dev, timestamp: float):
+    """The result of a tracked frame from its host stats s (25,): the
+    success gate, promotion on motion or overlap, and the failure streak
+    that re-seeds (pose held). Updates the tracker's pose, keyframe pose,
+    counters, trajectory and index; returns (result, is_new_keyframe), and
+    the caller takes the frame's target as the keyframe's when set."""
+    rmse, inlier, finite_ok = float(s[0]), float(s[1]), bool(s[2] > 0.5)
+    tw = s[3:9]
+    success = finite_ok and inlier >= tracker.min_inlier_fraction
+    is_new_kf = False
+    if success:
+        tracker._fail_streak = 0
+        tracker._pose = new_pose_dev
+        tracker._pose_np = s[9:25].reshape(4, 4)
+        is_new_kf = bool(
+            np.linalg.norm(tw[:3]) > tracker.max_translation
+            or np.linalg.norm(tw[3:]) > tracker.max_rotation
+            or inlier < tracker.min_overlap
+        )
+    else:
+        tracker._fail_streak += 1
+        tracker._fails_since_kf += 1
+        if tracker._fail_streak >= tracker.max_consecutive_failures:
+            # Recovery re-seed: pose held, the current frame becomes the
+            # reference so tracking can resume.
+            tracker._fail_streak = 0
+            is_new_kf = True
+    if is_new_kf:
+        tracker._kf_pose = tracker._pose
+        tracker.last_span_failures = tracker._fails_since_kf
+        tracker._fails_since_kf = 0
+    tracker.trajectory.append(timestamp, tracker._pose_np)
+    res = KeyframeResult(
+        pose=tracker._pose_np,
+        success=success,
+        is_new_keyframe=is_new_kf,
+        rmse=rmse,
+        inlier_fraction=inlier,
+        frame_index=tracker._index,
+        span_failures=tracker.last_span_failures if is_new_kf else 0,
+    )
+    tracker._index += 1
+    return res, is_new_kf
+
+
+def _read_window(tracker, s, n_real: int, timestamps, truncate):
+    """The results of a window's host stats rows s (W, 30), up to the
+    consumed tail (the first keyframe event in the latched modes); appends
+    the tracker's trajectory, advances its index and sets its failure
+    counters. Returns (results, last consumed row, the last event's row or
+    -1, whether the carry latched at the tail)."""
+    results: list[KeyframeResult] = []
+    consumed, last_event, hard_stop = 0, -1, False
+    for i in range(n_real):
+        ts = timestamps[i] if timestamps[i] is not None else float(tracker._index)
+        pose_np = s[i, 9:25].reshape(4, 4).astype(np.float32)
+        success = s[i, 25] > 0.5
+        is_new_kf = s[i, 26] > 0.5
+        tracker._pose_np = pose_np
+        tracker.trajectory.append(ts, pose_np)
+        results.append(KeyframeResult(
+            pose=pose_np,
+            success=bool(success),
+            is_new_keyframe=bool(is_new_kf),
+            rmse=float(s[i, 0]),
+            inlier_fraction=float(s[i, 1]),
+            frame_index=tracker._index,
+            span_failures=int(s[i, 27]) if is_new_kf else 0,
+        ))
+        tracker._index += 1
+        consumed = i + 1
+        if is_new_kf:
+            last_event = i
+            if truncate is True or (truncate == "failures" and not success):
+                hard_stop = True
+                break
+    last = consumed - 1
+    if last_event >= 0:
+        tracker.last_span_failures = int(s[last_event, 27])
+    if hard_stop:
+        tracker._fail_streak, tracker._fails_since_kf = 0, 0
+    else:
+        tracker._fail_streak, tracker._fails_since_kf = int(s[last, 28]), int(s[last, 29])
+    return results, last, last_event, hard_stop
 
 
 @dataclass
@@ -211,49 +317,9 @@ class KeyframeTracker:
             intr=self.intr, cfg=self.cfg, depth_scale=self.depth_scale,
         )
         self._last_levels = levels  # kept for a possible external re-seed
-        s = stats.cpu().numpy()  # the frame's one host transfer
-        rmse, inlier, finite_ok = float(s[0]), float(s[1]), bool(s[2] > 0.5)
-        tw = s[3:9]
-        new_pose_np = s[9:25].reshape(4, 4)
-
-        success = finite_ok and inlier >= self.min_inlier_fraction
-        is_new_kf = False
-        if success:
-            self._fail_streak = 0
-            self._pose = new_pose_dev
-            self._pose_np = new_pose_np
-            if (
-                np.linalg.norm(tw[:3]) > self.max_translation
-                or np.linalg.norm(tw[3:]) > self.max_rotation
-                or inlier < self.min_overlap
-            ):
-                self._kf_levels = levels
-                self._kf_pose = self._pose
-                is_new_kf = True
-        else:
-            self._fail_streak += 1
-            self._fails_since_kf += 1
-            if self._fail_streak >= self.max_consecutive_failures:
-                # Recovery re-seed: pose held, the current frame becomes
-                # the reference so tracking can resume.
-                self._fail_streak = 0
-                self._kf_levels = levels
-                self._kf_pose = self._pose
-                is_new_kf = True
+        res, is_new_kf = _read_frame(self, stats.cpu().numpy(), new_pose_dev, timestamp)  # one host transfer
         if is_new_kf:
-            self.last_span_failures = self._fails_since_kf
-            self._fails_since_kf = 0
-        self.trajectory.append(timestamp, self._pose_np)
-        res = KeyframeResult(
-            pose=self._pose_np,
-            success=success,
-            is_new_keyframe=is_new_kf,
-            rmse=rmse,
-            inlier_fraction=inlier,
-            frame_index=self._index,
-            span_failures=self.last_span_failures if is_new_kf else 0,
-        )
-        self._index += 1
+            self._kf_levels = levels
         return res
 
     def _window_stack(self, depths, pad_to):
@@ -299,55 +365,15 @@ class KeyframeTracker:
             depth_scale=self.depth_scale,
         )
         s = stats.cpu().numpy()  # the window's one host transfer
-        results: list[KeyframeResult] = []
-        consumed = 0
-        event = False
-        hard_stop = False  # the carry latched at the consumed tail
-        last_event = -1
-        for i in range(n_real):
-            ts = timestamps[i] if timestamps[i] is not None else float(self._index)
-            pose_np = s[i, 9:25].reshape(4, 4).astype(np.float32)
-            success = s[i, 25] > 0.5
-            is_new_kf = s[i, 26] > 0.5
-            self._pose_np = pose_np
-            self.trajectory.append(ts, pose_np)
-            results.append(KeyframeResult(
-                pose=pose_np,
-                success=bool(success),
-                is_new_keyframe=bool(is_new_kf),
-                rmse=float(s[i, 0]),
-                inlier_fraction=float(s[i, 1]),
-                frame_index=self._index,
-                span_failures=int(s[i, 27]) if is_new_kf else 0,
-            ))
-            self._index += 1
-            consumed = i + 1
-            if is_new_kf:
-                event = True
-                last_event = i
-                if truncate_at_events is True or (truncate_at_events == "failures" and not success):
-                    hard_stop = True
-                    break
-        last = consumed - 1
+        results, last, last_event, hard_stop = _read_window(self, s, n_real, timestamps, truncate_at_events)
         self._last_depth = depths[last]
-        self._last_levels = None  # rebuilt from _last_depth if needed
+        self._last_levels = kf_lv_dev if hard_stop else None  # else rebuilt from _last_depth if needed
         self._pose = pose_dev  # the pose after the last consumed row
-        if event:
+        if last_event >= 0:
             # The carry holds the keyframe state at the truncation point
             # (latched modes) or after the LAST event (multi-event mode).
             self._kf_levels = kf_lv_dev
             self._kf_pose = kf_pose_dev
-            self.last_span_failures = int(s[last_event, 27])
-            if hard_stop:
-                self._last_levels = kf_lv_dev
-                self._fail_streak = 0
-                self._fails_since_kf = 0
-            else:
-                self._fail_streak = int(s[last, 28])
-                self._fails_since_kf = int(s[last, 29])
-        else:
-            self._fail_streak = int(s[last, 28])
-            self._fails_since_kf = int(s[last, 29])
         return results
 
     def relocalize_to(self, pose) -> None:

@@ -11,10 +11,13 @@ exact; the GN round (gn_round) against its plain version with the pose
 within 1e-5 in twist, the matched count within max(1, 0.1% of P) (a ulp in
 the point transform can move a point across a pixel's half-way line) and
 rmse within 1e-4 relative (f32 sums in another order), bit-identical from
-launch to launch and from batch to batch; the CUDA paths against the
-same code on CPU: registration and the projective trackers to 1e-4, the
-world map by count, the cloud trackers to 1e-3 (a near-tie nearest
-neighbour can go the other way in another summation order).
+launch to launch and from batch to batch, in registers up to 8192 points
+and streamed above; the GN system (gn_system) against its plain version
+with H and b within 1e-5 of trace(H), the count within 1, bit-identical
+likewise; the CUDA paths against the same code on CPU: registration, the
+projective and RGB-D trackers to 1e-4, the world map by count, the cloud
+trackers to 1e-3 (a near-tie nearest neighbour can go the other way in
+another summation order).
 
 The pairwise modules (k-NN, covariances, FPFH, GICP, the k-core screen,
 robust registration, the registry's pipelines) are held to their own CPU
@@ -170,18 +173,81 @@ def test_gn_round_matches_reference(cuda, shape, p, inner_iters):
     _assert_rounds_close(got, gn_step.gn_round_reference(T, pts, ok, packed, intr, cfg), p)
 
 
-@pytest.mark.parametrize("p", [3000, gn_step.MAX_POINTS])
+@pytest.mark.parametrize("p", [3000, gn_step.REGISTER_POINTS])
 def test_gn_round_above_one_point_per_thread(cuda, p):
-    """Two and four points per thread (P > 2048), up to the cap; one more
-    point raises."""
+    """Two and four points per thread (P > 2048), up to the register path's
+    8192; one more point takes the streamed path, with no error."""
     cfg = projective.ProjectiveIcpConfig()
     T, pts, ok, packed, intr = _gn_inputs((480, 640), p, cuda)
     _assert_rounds_close(gn_step.gn_round(T, pts, ok, packed, intr, cfg),
                          gn_step.gn_round_reference(T, pts, ok, packed, intr, cfg), p)
-    more = torch.cat([pts, pts[..., :1]], dim=-1)
-    if more.shape[-1] > gn_step.MAX_POINTS:
-        with pytest.raises(ValueError):
-            gn_step.gn_round(T, more, torch.cat([ok, ok[:, :1]], dim=-1), packed, intr, cfg)
+    more, ok_more = torch.cat([pts, pts[..., :1]], dim=-1), torch.cat([ok, ok[:, :1]], dim=-1)
+    _assert_rounds_close(gn_step.gn_round(T, more, ok_more, packed, intr, cfg),
+                         gn_step.gn_round_reference(T, more, ok_more, packed, intr, cfg), p + 1)
+
+
+@pytest.mark.parametrize("p", [8193, 16384])
+def test_gn_round_streams_above_the_register_path(cuda, p):
+    """P > 8192: each inner iteration re-reads the points and their plane
+    rows from the scratch buffer; the round still matches its plain version,
+    is bit-identical from launch to launch and does not depend on B."""
+    cfg = projective.ProjectiveIcpConfig(inner_iters=3)
+    T, pts, ok, packed, intr = _gn_inputs((480, 640), p, cuda)
+    got = gn_step.gn_round(T, pts, ok, packed, intr, cfg)
+    _assert_equal_rounds(gn_step.gn_round(T, pts, ok, packed, intr, cfg), got)
+    single = gn_step.gn_round(T[1:2], pts[1:2], ok[1:2], packed[1:2], intr, cfg)
+    _assert_equal_rounds(single, (got[0][1:2], tuple(s[1:2] for s in got[1])))
+    _assert_rounds_close(got, gn_step.gn_round_reference(T, pts, ok, packed, intr, cfg), p)
+
+
+def _assert_systems_close(got, ref, p):
+    """gn_system against gn_system_reference: H and b within 1e-5 of the
+    pair's trace(H) (f32 sums in another order), wsse and wsum to 1e-5
+    relative, the count within max(1, 0.1% of P), as gn_round's (a ulp of
+    the transform can move a point across a pixel's half-way line or the
+    gate)."""
+    (H, b, (wsse, wsum, count)), (Hr, br, (wsser, wsumr, countr)) = got, ref
+    scale = Hr.diagonal(dim1=-2, dim2=-1).sum(-1).clamp_min(1e-30)[:, None]
+    assert ((H - Hr).abs().flatten(1) <= 1e-5 * scale).all()
+    assert ((b - br).abs() <= 1e-5 * scale).all()
+    assert torch.equal(H, H.transpose(1, 2))
+    assert ((wsse - wsser).abs() <= 1e-5 * wsser + 1e-12).all()
+    assert ((wsum - wsumr).abs() <= 1e-5 * wsumr + 1e-12).all()
+    assert count.dtype == torch.int32 and (count - countr).abs().max().item() <= max(1, 1e-3 * p)
+
+
+@pytest.mark.parametrize("p", [1, 2048, 8193, 16384])
+@pytest.mark.parametrize("b", [1, 7, 512])
+def test_gn_system_matches_reference(cuda, b, p):
+    """One association and one reduction at T, the system out: against its
+    plain version, bit-identical from launch to launch, each pair equal to
+    its B=1 launch."""
+    cfg = projective.ProjectiveIcpConfig()
+    T, pts, ok, packed, intr = _gn_inputs((240, 320), p, cuda)
+    rows = torch.arange(b, device=cuda) % 3
+    T, pts, ok, packed = (x[rows].contiguous() for x in (T, pts, ok, packed))
+    before = gn_step.LAUNCHES["gn_system"]
+    got = gn_step.gn_system(T, pts, ok, packed, intr, cfg)
+    again = gn_step.gn_system(T, pts, ok, packed, intr, cfg)
+    torch.cuda.synchronize()
+    assert gn_step.LAUNCHES["gn_system"] == before + 2
+    for x, y in zip((got[0], got[1], *got[2]), (again[0], again[1], *again[2])):
+        assert torch.equal(x, y)
+    _assert_systems_close(got, gn_step.gn_system_reference(T, pts, ok, packed, intr, cfg), p)
+    for i in range(min(b, 3)):
+        one = gn_step.gn_system(T[i : i + 1], pts[i : i + 1], ok[i : i + 1], packed[i : i + 1], intr, cfg)
+        for x, y in zip((one[0], one[1], *one[2]), (got[0], got[1], *got[2])):
+            assert torch.equal(x[0], y[i])
+
+
+def test_build_normal_equations_on_cuda_launches_gn_system(cuda):
+    cfg = projective.ProjectiveIcpConfig()
+    T, pts, ok, packed, intr = _gn_inputs((120, 160), 1000, cuda)
+    level = pyramid.PyramidLevel(None, None, None, None, packed)
+    before = dict(gn_step.LAUNCHES)
+    H, b, aux = projective.build_normal_equations(T, pts.transpose(1, 2), ok, level, intr, cfg)
+    assert gn_step.LAUNCHES == {**before, "gn_system": before["gn_system"] + 1}
+    _assert_systems_close((H, b, aux), gn_step.gn_system_reference(T, pts, ok, packed, intr, cfg), 1000)
 
 
 @pytest.mark.parametrize("p", [2048, 777, 256])
@@ -280,6 +346,28 @@ def test_keyframe_tracker_on_cuda_matches_cpu(cuda, window):
     for a, b in zip(*runs):
         assert a.success == b.success and a.is_new_keyframe == b.is_new_keyframe
         np.testing.assert_allclose(b.pose, a.pose, atol=1e-4)
+
+
+def test_rgbd_tracker_on_cuda_matches_cpu(cuda):
+    """Tracker(method="rgbd") on u8 color, 3 frames: the poses within 1e-4
+    of the same code on the CPU; gn_system launches sum(iters) + 1 times
+    per tracked frame and gn_round never."""
+    from realsensetracker_tpu_torch.align.rgbd import RgbdIcpConfig
+
+    intr = _intr(120, 160)
+    depths, colors, _ = synthetic.render_trajectory_rgbd(intr, 3, seed=2)
+    cfg = RgbdIcpConfig(iters=(4, 4), samples=768)
+    runs = []
+    for device in ("cpu", cuda):
+        tracker = Tracker(TrackerConfig(intrinsics=intr, method="rgbd", rgbd=cfg, device=str(device)))
+        before = dict(gn_step.LAUNCHES)
+        res = [tracker.process(d, color=(c.numpy() * 255).astype(np.uint8)) for d, c in zip(depths, colors)]
+        assert all(r.success for r in res)
+        if device == cuda:
+            want = {**before, "gn_system": before["gn_system"] + (sum(cfg.iters) + 1) * (len(res) - 1)}
+            assert gn_step.LAUNCHES == want
+        runs.append(np.stack([r.pose for r in res]))
+    np.testing.assert_allclose(runs[1], runs[0], atol=1e-4)
 
 
 def _stream(intr, n, device="cpu"):

@@ -212,3 +212,27 @@ def test_port_imports_no_jax():
         [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("kind", ["near_rotation", "reflection"])
+def test_orthogonalize_matches_jax(kind):
+    """The nearest rotation by SVD, U's third column flipped where
+    det(U V^T) < 0 (not R's, as orthonormalize does): a reflection lands on
+    the same rotation as JAX's. The reflections are stretched so that their
+    singular values stand apart (the flipped singular vector is
+    ill-conditioned when they nearly coincide)."""
+    tw = _twists(11, 8, 0.8)
+    R = se3.exp(torch.from_numpy(tw))[:, :3, :3].numpy()
+    R = R + 1e-3 * np.random.RandomState(12).randn(*R.shape).astype(np.float32)
+    if kind == "reflection":
+        R = R * np.array([1.3, 1.0, -0.6], np.float32)
+    got = se3.orthogonalize(torch.from_numpy(R))
+    _close(got, jse3.orthogonalize(j32(R)), atol=2e-6)
+    np.testing.assert_allclose(torch.linalg.det(got).numpy(), 1.0, atol=1e-5)
+
+
+def test_intrinsics_matrix_matches_jax():
+    for jintr, intr in (intrinsics(48, 64, 50.0, 55.0), (jcam.TUM_FR1, camera.TUM_FR1)):
+        K = intr.matrix()
+        assert K.dtype == torch.float32 and K.device.type == "cpu"
+        np.testing.assert_array_equal(K.numpy(), np.asarray(jintr.matrix()))

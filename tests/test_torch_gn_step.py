@@ -126,6 +126,19 @@ def test_gn_round_reference_matches_jax_step(frames, level, samples, twist, drop
     np.testing.assert_allclose(frac[0].item(), float(jfrac), rtol=0, atol=1e-7)
 
 
+@pytest.mark.parametrize("level, samples, twist, dropout", CASES)
+def test_gn_system_reference_matches_jax_build_normal_equations(frames, level, samples, twist, dropout):
+    """gn_system's plain version is JAX's build_normal_equations: one
+    association and the system at the same pose."""
+    jlevel, jintr, pts, ok, port_level, T = _inputs(frames, level, samples, twist, dropout)
+    H_ref, b_ref, aux_ref = jproj.build_normal_equations(j32(T), pts, ok, jlevel, jintr, JCFG)
+    tT, tpts, tok = _port_args(pts, ok, T)
+    before = dict(gn_step.LAUNCHES)
+    H, b, aux = gn_step.gn_system(tT, tpts, tok, port_level.packed, interop.intrinsics_from_jax(jintr), CFG)
+    assert gn_step.LAUNCHES == before  # CPU tensors never launch
+    _assert_system_close(H, b, aux, H_ref, b_ref, aux_ref)
+
+
 @pytest.mark.parametrize("level, samples, twist, dropout", CASES[:2])
 def test_fused_first_iteration_equals_separate_calls(frames, level, samples, twist, dropout):
     """gn_round's inner iterations run against the planes of its FIRST
@@ -159,23 +172,27 @@ def test_fused_first_iteration_equals_separate_calls(frames, level, samples, twi
     ],
 )
 def test_wrappers_reject_bad_inputs(bad, error):
+    """Both entries refuse what their kernels do not take. P has no cap
+    (above REGISTER_POINTS gn_round streams on the card); too_many_points
+    is more points than flags."""
     b, p = 2, 300
-    if bad == "too_many_points":
-        p = gn_step.MAX_POINTS + 1
     T = se3.identity().expand(b, 4, 4).contiguous()
     pts = torch.rand((b, 3, p))
     ok = torch.ones((b, p), dtype=torch.bool)
     packed = torch.zeros((b, 4, INTR.height, INTR.width))
     if bad == "pts_f64":
         pts = pts.double()
+    elif bad == "too_many_points":
+        pts = torch.rand((b, 3, p + 1))
     elif bad == "ok_shape":
         ok = ok[:, :-1]
     elif bad == "pts_strided":
         pts = torch.rand((b, p, 3)).transpose(1, 2)
     elif bad == "table_shape":
         packed = packed[..., :-1]
-    with pytest.raises(error):
-        gn_step.gn_round(T, pts, ok, packed, INTR, CFG)
+    for entry in (gn_step.gn_round, gn_step.gn_system):
+        with pytest.raises(error):
+            entry(T, pts, ok, packed, INTR, CFG)
 
 
 def test_projective_icp_on_cpu_keeps_the_plain_path(frames):

@@ -76,6 +76,20 @@ def test_register_depth_pair_matches_jax(pairs):
     _assert_results_match(got, ref1)
 
 
+def test_register_depth_pair_above_8192_samples_matches_jax():
+    """samples=8193 on a 128x96 frame (12,288 pixels, stride 1): the finest
+    level really holds 8193 points, one more than gn_round keeps in
+    registers on the card. The CPU path has no cap, as JAX has none."""
+    jintr, intr = intrinsics(96, 128, 100.0)
+    src, dst, T = pair(intr, [0.02, -0.01, 0.015, 0.01, -0.01, 0.005], seed=2)
+    cfg, jcfg = CFG._replace(samples=8193), JCFG._replace(samples=8193)
+    got = projective.register_depth_pair(torch.from_numpy(src)[None], torch.from_numpy(dst)[None], intr, cfg)
+    ref = jproj.register_depth_pair(j32(src), j32(dst), jintr, jcfg)
+    assert got.num_matched.item() > 8192 // 2
+    np.testing.assert_allclose(_twist(got.transform[0]), _twist(ref.transform), atol=1e-4)
+    assert np.abs(_twist(got.transform[0]) - _twist(T)).max() < 3e-3
+
+
 def test_register_batch_matches_jax(pairs, jax_batch):
     src, dst, _ = pairs
     got = batched.register_batch(torch.from_numpy(src), torch.from_numpy(dst), INTR, CFG)

@@ -191,3 +191,84 @@ def test_register_robust_matches_jax(case):
     assert float(res.rotation_inlier_fraction) == pytest.approx(float(jres.rotation_inlier_fraction), abs=1e-6)
     if case != "few":
         assert twist_gap(T_true, res.transform) < (5e-2 if case == "outliers" else 1e-2)
+
+
+# --- the frame pair of chip_smoke.py's align_pair phase (standing records) ----------
+
+# The 19 TIMs of the k-core that the port's CPU run of robust-global reaches
+# on chip_smoke.py's frame pair (the 8192-point voxel cloud of one 640x480
+# TUM_FR1 frame and its copy moved by a known twist): source and
+# destination differences, f32.
+TIMS_A = np.array([
+    [-0.000266314, -0.046507716, 0.00046587], [0.0075109, -0.054272056, 0.000425339],
+    [0.001230955, -0.000437617, -0.0422287], [0.036948323, -0.000817776, -0.044775963],
+    [0.000645995, -0.000457287, -0.044734955], [0.003737092, -0.000679016, -0.0637176],
+    [0.00011611, -0.000441074, -0.043659687], [0.00011909, -0.000451803, -0.04470277],
+    [0.000121832, -0.000462413, -0.045782804], [-0.000621796, -0.100770354, 0.001009464],
+    [0.007244587, -0.10077977, 0.000891209], [-0.000516534, -0.001101971, -0.10987401],
+    [0.03759432, -0.001275063, -0.08951092], [0.003853202, -0.00112009, -0.10737729],
+    [0.0002352, -0.000892878, -0.088362455], [0.000240922, -0.000914216, -0.09048557],
+    [-0.00032413, -0.100277305, 0.001000166], [-0.000312328, -0.10023272, 0.000999689],
+    [-0.000798106, -0.24692678, 0.002463102],
+], np.float32)
+TIMS_B = np.array([
+    [-0.19563246, -0.46770817, 0.46248865], [-0.051912785, -0.000000119, -0.10071564],
+    [0.19982636, 0.3194958, -0.3632176], [0.14845002, -0.05319643, 0.0],
+    [0.10168743, -0.045789838, -0.000000477], [0.047071457, -0.046139896, 0.0],
+    [0.000253677, -0.054181397, 0.0], [-0.20261979, -0.047673106, 0.000000715],
+    [-0.046477437, -0.05439037, -0.000000238], [0.000446796, -0.100649476, 0.000000477],
+    [-0.24754524, -0.4677083, 0.361773], [-0.34561574, -0.31949568, 0.2134633],
+    [0.25013745, -0.09898627, -0.000000477], [0.047325134, -0.10032129, 0.0],
+    [-0.20236611, -0.1018545, 0.000000715], [-0.24909723, -0.10206348, 0.000000477],
+    [0.00068295, -0.10026294, 0.0], [0.000682712, -0.10023582, 0.0],
+    [-0.044896245, -0.24721062, 0.0],
+], np.float32)
+
+
+def test_gnc_tls_rotation_goes_nan_with_jax_when_mu_overflows():
+    """Standing record, JAX side: on these 19 mostly inconsistent TIMs the
+    weighted cost never settles to the relative threshold, mu grows x1.4 a
+    round until it overflows f32 (~265 rounds), the weights turn NaN and
+    the stopping round's rotation is NaN. JAX's GNC-TLS returns NaN; the
+    port returns NaN with it, on the same inputs."""
+    mask = np.ones(len(TIMS_A), bool)
+    rg.ITERATIONS.update(gnc=0)
+    R, inl = rg._gnc_tls_rotation(_t(TIMS_A), _t(TIMS_B), _t(mask), 0.5)
+    jR, jinl = jrg._gnc_tls_rotation(jnp.asarray(TIMS_A), jnp.asarray(TIMS_B), jnp.asarray(mask), 0.5)
+    assert torch.isnan(R).all() and np.isnan(np.asarray(jR)).all()
+    assert not inl.any() and not np.asarray(jinl).any()
+    assert rg.ITERATIONS["gnc"] > 200
+
+
+def _fpfh_like(n, seed):
+    """Non-negative 33-bin rows summing to 300, as FPFH's three 11-bin
+    histograms of percentages: |f|^2 ~ 1e4."""
+    rng = np.random.RandomState(seed)
+    return (300.0 * rng.dirichlet(np.ones(33) * 0.5, size=n)).astype(np.float32)
+
+
+def test_feature_matches_part_from_jax_only_at_near_ties():
+    """Standing record, neither side: the 1-NN over FPFH rows is the f32
+    |a|^2 + |b|^2 - 2 a.b form, which cannot separate two candidates whose
+    squared distances differ by less than its rounding, ~4 eps (|a|^2 +
+    |b|^2) ~ 5e-3 here. Each destination row is shadowed by a twin at
+    almost the same distance from its source row; the port's and JAX's
+    forward matches may part only at rows where the two best distances
+    (in f64) lie within that bound."""
+    src = _fpfh_like(96, 3)
+    rng = np.random.RandomState(4)
+    step = rng.randn(96, 33).astype(np.float32)
+    dst = np.concatenate([src + 0.5 * step, src - 0.5 * step + 1e-4 * rng.randn(96, 33).astype(np.float32)])
+    mask = np.ones(len(dst), bool)
+    idx, _ = rg.mutual_matches(_t(src), _t(dst), _t(np.ones(96, bool)), _t(mask))
+    jidx, _ = jrg.mutual_matches(*map(jnp.asarray, (src, dst, np.ones(96, bool), mask)))
+    d2 = ((src[:, None, :].astype(np.float64) - dst[None].astype(np.float64)) ** 2).sum(-1)
+    best2 = np.sort(d2, axis=1)[:, :2]
+    norms = (src.astype(np.float64) ** 2).sum(-1)[:, None] + (dst.astype(np.float64) ** 2).sum(-1)[None]
+    bound = 4 * np.finfo(np.float32).eps * norms.max(1)
+    near_tie = best2[:, 1] - best2[:, 0] <= bound
+    assert near_tie.sum() >= 10  # the twins make near ties
+    parted = idx.numpy() != np.asarray(jidx)
+    assert not (parted & ~near_tie).any()
+    exact = np.argmin(d2, axis=1)
+    assert ((idx.numpy() == exact) | near_tie).all()
