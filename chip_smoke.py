@@ -8,8 +8,9 @@ Run from the repository root on a machine with a CUDA card, nvcc and no
 need for JAX. Phases, one JSON line each:
 
   1. device     -- the card (name and power limit from nvidia-smi); TF32 off.
-  2. build      -- builds csrc/downsample.cu, csrc/level_kernel.cu and
-                   csrc/gn_step.cu, one nvcc each, started together.
+  2. build      -- builds csrc/downsample.cu, csrc/level_kernel.cu,
+                   csrc/gn_step.cu and csrc/backbone.cu, one nvcc each, started
+                   together.
   2b. downsample_kernel -- holds downsample_levels against its plain torch
                    version (validity identical, depth within 2 ulp; the
                    worst gap is printed) on a 640x480 batch with 5% holes
@@ -100,9 +101,40 @@ need for JAX. Phases, one JSON line each:
                    ops.correspond.k_smallest (the tie-stable k-NN) against
                    a stable sort of each row at the k-NN shapes of GICP and
                    FPFH.
+  10. backbone_kernel -- holds backbone_factor and backbone_apply (the
+                   port's own kernel for the pose graph's block-LDL^T backbone
+                   preconditioner, f64 inside) against their plain versions on
+                   the backbone blocks of a 64- and a 1000-node graph's first GN
+                   iteration: the apply on the plain factors within 1e-5 of |z|,
+                   the kernel's solve no further from an f64 solve than twice
+                   the plain version's (+1e-6), a singular block's non-finite
+                   factors as the plain version's and the apply's guard
+                   returning r; timed against the plain loops, with the bound
+                   and the 3n dependent 6x6 steps of a factor and an apply.
+  11. pose_graph -- optimize_pose_graph on the 1000-node 5-lap graph of
+                   tests/test_posegraph_loops.py:96-120 (numpy seed 3), 6 GN x
+                   60 backbone-preconditioned CG steps: cost within 1.05x of a
+                   1500-step unpreconditioned run, the max position error
+                   halved, the card within 1e-4 of the CPU after one GN
+                   iteration and, after six, within ten times the move of the
+                   CPU's own result under a one-ulp change of its input; ms,
+                   device kernels, syncs and copies by kind per call (the SLAM
+                   defaults, 10 x 60) at K = 16, 64 and 1000 nodes: no sync and
+                   no device-to-host copy before the result is read.
+  12. slam      -- SlamTracker at 640x480 over the 120-frame out-and-back of
+                   tools/tpu/synth640.py (numpy seed 7), rendered by the port,
+                   u16 at 1/5000 m, SlamConfig defaults (deferred booking),
+                   then optimize(): >= 1 loop closure, every loop edge within
+                   0.05 twist of the truth, keyframe ATE no worse after
+                   optimize (+1e-4), gn_round sum(iters) launches per tracked
+                   frame, deferred booking equal to synchronous over 40
+                   frames, the card within 1e-4 of the CPU over 20; host ms per
+                   frame (median, p90 after 10 frames) and per frame after an
+                   event, syncs, copies and device kernels per frame by its
+                   place in the booking pipeline.
 
 Each main path (register, register_normal_space, tracker, keyframe,
-world_map, model, icp, gicp, align_pair, rgbd) runs with every launch count set
+world_map, model, icp, gicp, align_pair, rgbd, pose_graph, slam) runs with every launch count set
 to 0 just before it and read just after; a kernel the path runs must have
 launched there, and the cloud paths (model, icp, gicp, align_pair), which
 run no kernel of their own, must have launched none. Then the kernels line, with each kernel's bound (the
@@ -123,6 +155,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 import warnings
 from concurrent.futures import ThreadPoolExecutor
 
@@ -141,6 +174,7 @@ MODEL_TRUTH_BAR = 0.05  # tests/test_tracking.py:249-251
 CLOUD_CPU_BAR = 1e-3  # model / icp / gicp twist, CUDA vs CPU, first 3 frames; pipelines
 PIPELINE_TRUTH_BAR = 5e-3  # gicp and fpfh-kabsch-icp vs the known twist (tests/test_api_cli.py:97)
 SYSTEM_BAR = 1e-5  # gn_system's H and b vs the plain version, of trace(H)
+BACKBONE_APPLY_BAR = 1e-5  # the backbone apply on the plain version's factors, of |z|
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM peak HBM3 bandwidth
 F32_FLOPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
@@ -160,6 +194,9 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "gn_round": ("realsensetracker_tpu_torch/csrc/gn_step.cu", "tools/tpu/mosaic_probe5.py:53,91"),
     # The same probes, for the unsolved system of the joint RGB-D step.
     "gn_system": ("realsensetracker_tpu_torch/csrc/gn_step.cu", "tools/tpu/mosaic_probe5.py:53,91"),
+    # Not a Pallas kernel: the plain-XLA lax.scans of the backbone
+    # preconditioner's factor (:222) and apply (:232), the port's own kernel.
+    "backbone": ("realsensetracker_tpu_torch/csrc/backbone.cu", "realsensetracker_tpu/optimize/pose_graph.py:222,232"),
 }
 
 
@@ -186,6 +223,290 @@ def check(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
+def backbone_and_slam_phases(ctx) -> dict:
+    """Phases 10-12: the backbone kernel against its plain version, pose-graph
+    optimization, and SLAM at 640x480. ctx carries main()'s helpers (dev,
+    card, reset_counts, read_counts, check_counts, bound, turns, time_ms,
+    ate_of, slam_intr: the SLAM phase's camera). Returns the backbone row's numbers for the kernels line."""
+    import numpy as np
+    import torch
+
+    from realsensetracker_tpu_torch.align import projective
+    from realsensetracker_tpu_torch.data import synthetic
+    from realsensetracker_tpu_torch.kernels import backbone
+    from realsensetracker_tpu_torch.optimize import pose_graph as pg
+    from realsensetracker_tpu_torch.tracking import trajectory
+    from realsensetracker_tpu_torch.tracking.slam import SlamConfig, SlamTracker, _se3_log_np
+
+    dev, card = ctx.dev, ctx.card
+
+    # ---- 10. backbone kernel vs plain version ------------------------------
+    def blocks_of(graph, n, lm=1e-6):
+        """The backbone blocks and right-hand side of a graph's first GN
+        iteration, as optimize_pose_graph builds them."""
+        zero = torch.zeros((n, 6), dtype=torch.float32, device=dev)
+        r_edges = pg._edge_residuals(zero, graph)
+        w_rob = pg.robust_weights(r_edges, 0.1, use_gm=False)
+        J = pg.edge_jacobians(graph, graph.poses, graph.weights * w_rob)
+        D, O = pg.backbone_blocks(graph, J, n, torch.full((), lm, device=dev))
+        return D, O, -pg.gradient(J, graph, (r_edges * w_rob[:, None]).reshape(-1), n)
+
+    graphs = {16: synthetic.lap_graph(2, 8, seed=3, loop_every=4), 64: synthetic.lap_graph(2, 32, seed=3, loop_every=4),
+              1000: synthetic.lap_graph(5, 200, seed=3)}
+    bb_rows, bb_err = [], 0.0
+    for k_ in (64, 1000):
+        _, est, loops = graphs[k_]
+        n = est.shape[0]
+        D, O, r = blocks_of(pg.from_trajectory(est, loop_edges=loops, device=dev), n)
+        S, U = backbone.backbone_factor(D, O)
+        z = backbone.backbone_apply(S, U, r)
+        S_ref, U_ref = backbone.backbone_factor_reference(D, O)
+        z_ref = backbone.backbone_apply_reference(S_ref, U_ref, r)
+        z_mixed = backbone.backbone_apply(S_ref.contiguous(), U_ref.contiguous(), r)
+        S64, U64 = backbone.backbone_factor_reference(D.double(), O.double())
+        z64 = backbone.backbone_apply_reference(S64, U64, r.double())
+        torch.cuda.synchronize()
+        rel = lambda a, b: ((a.double() - b).abs().max() / b.abs().max()).item()  # noqa: E731
+        err_k, err_p, mixed = rel(z, z64), rel(z_ref, z64), rel(z_mixed, z_ref.double())
+        what = f"backbone at n={n}"
+        check(mixed <= BACKBONE_APPLY_BAR, f"{what}: the apply alone {mixed} of |z| > {BACKBONE_APPLY_BAR}")
+        check(err_k <= 2 * err_p + 1e-6, f"{what}: kernel {err_k} from the f64 solve, plain {err_p}")
+        err = max((S - S_ref).abs().max().item(), (U - U_ref).abs().max().item(), (z - z_ref).abs().max().item())
+        bb_err = max(bb_err, err)
+        k_f = ctx.time_ms(lambda: backbone.backbone_factor(D, O), 50)
+        k_a = ctx.time_ms(lambda: backbone.backbone_apply(S, U, r), 200)
+        k_ms, p_ms = ctx.turns(lambda: backbone.backbone_apply_reference(*backbone.backbone_factor_reference(D, O), r),
+                               lambda: backbone.backbone_apply(*backbone.backbone_factor(D, O), r), 2, 50)
+        nbytes = 4 * 36 * (2 * n - 1) * 2 + 4 * (36 * (2 * n - 1) + 12 * n)  # factor in + out; apply in + out
+        b_ms, b_by = ctx.bound(nbytes, n * (1500 + 216))  # ~1500 flops to factor a node, ~216 to apply
+        bb_rows.append({"n": n, "kernel_vs_f64": err_k, "plain_vs_f64": err_p, "apply_on_plain_factors": mixed,
+                        "max_abs_err": err, "ms": k_ms, "factor_ms": k_f, "apply_ms": k_a, "plain_ms": p_ms,
+                        "bound_ms": b_ms, "bound_by": b_by, "dependent_steps": {"factor": n, "apply": 2 * n}})
+    # The guard: a singular block (S_17 = 0) leaves non-finite factors from
+    # its node on, in both versions, and the apply then returns r itself.
+    D, O, r = blocks_of(pg.from_trajectory(graphs[64][1], loop_edges=graphs[64][2], device=dev), graphs[64][1].shape[0])
+    D[17], O[16] = -backbone.DIAG * torch.eye(6, device=dev), 0.0  # S_17 = 0 exactly
+    S, U = backbone.backbone_factor(D, O)
+    S_ref, U_ref = backbone.backbone_factor_reference(D, O)
+    bad = lambda t: (~torch.isfinite(t)).flatten(1).any(-1)  # noqa: E731
+    check(torch.equal(bad(S), bad(S_ref)) and bool(bad(S)[17]), "backbone guard: non-finite blocks differ")
+    check(torch.equal(backbone.backbone_apply(S, U, r), r), "backbone guard: the apply did not return r")
+    emit("backbone_kernel", bars={"apply_on_plain_factors": BACKBONE_APPLY_BAR, "vs_f64": "2x plain + 1e-6"},
+         rows=bb_rows, guard_blocks_non_finite=int(bad(S).sum().item()), card=card)
+    big = bb_rows[-1]
+
+    # ---- 11. pose-graph optimization (main path) ----------------------------
+    gt, est, loops = graphs[1000]
+    graph = pg.from_trajectory(est, loop_edges=loops, device=dev)
+    kw = dict(gn_iters=6, huber_delta=0.1)
+    ctx.reset_counts()
+    p_pcg, c_pcg = pg.optimize_pose_graph(graph, cg_iters=60, precondition=True, **kw)
+    c_pcg = float(c_pcg)
+    ctx.check_counts(ctx.read_counts(), "pose_graph", 0, 0, 0, backbones=6 * (1 + 61))
+    _, c_ref = pg.optimize_pose_graph(graph, cg_iters=1500, precondition=False, **kw)
+    _, c_plain60 = pg.optimize_pose_graph(graph, cg_iters=60, precondition=False, **kw)
+    c_ref, c_plain60 = float(c_ref), float(c_plain60)
+    # The card against the same code on the CPU. After the first GN
+    # iteration, at the Geman-McClure switch, this graph's result follows
+    # the last ulp: the CPU's own result moves by 1e-2 when the input poses
+    # move by one ulp (ROADMAP section 3). So the 1e-4 bar holds at one GN
+    # iteration, and at six the card's gap is held to ten times that move.
+    ulp_est = np.nextafter(est, np.float32(np.inf)).astype(np.float32)
+    ulp_est[:, 3, :] = est[:, 3, :]
+    cpu_runs = {}
+    for gi in (1, 6):
+        for name_, e_ in (("cpu", est), ("cpu_ulp", ulp_est)):
+            p_, c_ = pg.optimize_pose_graph(pg.from_trajectory(e_, loop_edges=loops, device="cpu"), gn_iters=gi,
+                                            cg_iters=60, huber_delta=0.1)
+            cpu_runs[name_, gi] = (p_, float(c_))
+    p_gpu1, c_gpu1 = pg.optimize_pose_graph(graph, gn_iters=1, cg_iters=60, huber_delta=0.1)
+    p_cpu, c_cpu = cpu_runs["cpu", 6]
+    gap1 = {"cost_rel": abs(float(c_gpu1) / cpu_runs["cpu", 1][1] - 1),
+            "pose": float((p_gpu1.cpu() - cpu_runs["cpu", 1][0]).abs().max())}
+    gap6 = {"cost_rel": abs(c_pcg / c_cpu - 1), "pose": float((p_pcg.cpu() - p_cpu).abs().max())}
+    ulp6 = {"cost_rel": abs(cpu_runs["cpu_ulp", 6][1] / c_cpu - 1),
+            "pose": float((cpu_runs["cpu_ulp", 6][0] - p_cpu).abs().max())}
+    check(c_pcg <= 1.05 * c_ref + 1e-8, f"pose_graph: PCG cost {c_pcg} > 1.05 x the 1500-step plain CG's {c_ref}")
+    check(gap1["cost_rel"] <= 1e-4 and gap1["pose"] <= 1e-4, f"pose_graph: one GN iteration, card vs CPU {gap1}")
+    check(gap6["cost_rel"] <= 10 * ulp6["cost_rel"] + 1e-4,
+          f"pose_graph: six GN iterations, card vs CPU {gap6}, the CPU's one-ulp move {ulp6}")
+    pos_err = lambda P: float(np.abs(P[:, :3, 3] - gt[:, :3, 3]).max())  # noqa: E731
+    err_after = pos_err(p_pcg.cpu().numpy())
+    check(err_after < 0.5 * pos_err(est), f"pose_graph: max position error {err_after} vs {pos_err(est)}")
+
+    def profile_call(g):
+        """One optimize_pose_graph call (the SLAM defaults, 10 x 60): host
+        ms to its return and to the synchronize; in a trace of the call,
+        before its result is read: device kernels, stream syncs, and device
+        copies by kind (the DtoD ones are scalars that torch.func's
+        transforms copy on the card)."""
+        pg.optimize_pose_graph(g, gn_iters=10, cg_iters=60)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        poses_, _ = pg.optimize_pose_graph(g, gn_iters=10, cg_iters=60)
+        enqueue_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        total_ms = (time.perf_counter() - t0) * 1e3
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            pg.optimize_pose_graph(g, gn_iters=10, cg_iters=60)
+        names = [e.name for e in prof.events()]
+        poses_.cpu()  # the read
+        return {"ms_to_return": enqueue_ms, "ms_to_sync": total_ms,
+                "device_kernels": sum(n_.startswith("cudaLaunchKernel") for n_ in names),
+                # The profiler's own exit is a cudaDeviceSynchronize: streams only.
+                "syncs": sum(n_ == "cudaStreamSynchronize" for n_ in names),
+                "copies": {kind: sum(kind in n_ for n_ in names) for kind in ("DtoH", "HtoD", "DtoD")}}
+
+    per_k = {}
+    for k_, (_, est_k, loops_k) in graphs.items():
+        per_k[k_] = row_ = profile_call(pg.from_trajectory(est_k, loop_edges=loops_k, device=dev))
+        row_["kernels_per_cg_step"] = row_["device_kernels"] / (10 * 60)
+        check(row_["syncs"] == 0 and row_["copies"]["DtoH"] == 0,
+              f"pose_graph K={k_}: {row_} -- a host sync or device-to-host copy before the read")
+    emit("pose_graph", nodes=est.shape[0], edges=int(graph.edges_i.shape[0]), gn_iters=6, cost_pcg60=c_pcg,
+         cost_plain1500=c_ref, cost_plain60=c_plain60, cost_cpu_pcg60=c_cpu, card_vs_cpu_gn1=gap1,
+         card_vs_cpu_gn6=gap6, cpu_one_ulp_move_gn6=ulp6, max_position_error_before=pos_err(est),
+         max_position_error_after=err_after, per_call=per_k, card=card)
+
+    # ---- 12. SLAM at 640x480 (main path) -------------------------------------
+    # The 120-frame out-and-back of tools/tpu/synth640.py (numpy seed 7), u16
+    # at 1/5000 m, SlamConfig defaults but the intrinsics and depth scale.
+    intr = ctx.slam_intr
+    rng = np.random.RandomState(7)
+    fwd = np.zeros((60, 6), np.float32)
+    fwd[:, 2] = 0.025
+    fwd[:, 0:2] = 0.004 * rng.randn(60, 2)
+    fwd[:, 3:6] = 0.006 * rng.randn(60, 3)
+    twists = np.concatenate([fwd, -fwd[::-1][:59]], 0)
+    poses_gt = synthetic.poses_from_twists(torch.from_numpy(twists).to(dev))
+    scene = synthetic.default_scene(seed=0, device=dev)
+    frames = [np.clip(np.round(synthetic.render_depth(intr, T, scene).cpu().numpy() * 5000.0), 0, 65535)
+              .astype(np.uint16) for T in poses_gt]
+    gt_np = poses_gt.cpu().numpy()
+    n_frames = len(frames)
+    slam_cfg = SlamConfig(intrinsics=intr, depth_scale=1.0 / 5000.0, device=str(dev))
+    kf_rounds = sum(projective.fit_levels(slam_cfg.icp, intr.height, intr.width).iters)
+    kf_levels = len(projective.fit_levels(slam_cfg.icp, intr.height, intr.width).iters)
+    warm = SlamTracker(slam_cfg)  # library initialisation, outside every count and time
+    for i, f in enumerate(frames[:14]):
+        warm.process(f, float(i))
+    warm.flush_pending()
+
+    tracker = SlamTracker(slam_cfg)
+    torch.cuda.synchronize()
+    ctx.reset_counts()
+    ms, events = [], []
+    for i, f in enumerate(frames):
+        t0 = time.perf_counter()
+        res = tracker.process(f, float(i))
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if res.is_new_keyframe:
+            events.append(i)
+    t0 = time.perf_counter()
+    tracker.flush_pending()
+    flush_ms = (time.perf_counter() - t0) * 1e3
+    stream_launches = ctx.read_counts()
+    ctx.check_counts(stream_launches, "slam", kf_levels * n_frames, kf_rounds * (n_frames - 1), n_frames)
+    kfs = tracker._keyframes
+    kf_frames = [k.frame_index for k in kfs]
+    before = np.stack([k.pose for k in kfs])
+    n_loops = tracker.num_loop_closures
+    check(n_loops >= 1, "slam: no loop closure")
+    loop_gaps = []
+    for i_, j_, T_, _w in tracker._loop_edges:
+        T_true = np.linalg.inv(gt_np[kf_frames[i_]]) @ gt_np[kf_frames[j_]]
+        loop_gaps.append(float(np.linalg.norm(_se3_log_np(np.linalg.inv(T_) @ T_true))))
+    check(max(loop_gaps, default=0.0) < 0.05, f"slam: a loop edge {max(loop_gaps, default=0.0)} from the truth")
+    ctx.reset_counts()
+    t0 = time.perf_counter()
+    opt = tracker.optimize()
+    opt_ms = (time.perf_counter() - t0) * 1e3
+    opt_launches = dict(backbone.LAUNCHES)
+    ctx.check_counts(ctx.read_counts(), "slam optimize", 0, 0, 0, backbones=10 * (1 + 61))
+    check(np.isfinite(opt).all(), "slam: optimized poses not finite")
+
+    def kf_ate(P):
+        est_t, gt_t = trajectory.Trajectory(), trajectory.Trajectory()
+        for fi, T in zip(kf_frames, P):
+            est_t.append(float(fi), T)
+            gt_t.append(float(fi), gt_np[fi])
+        return trajectory.absolute_trajectory_error(est_t, gt_t)["rmse"]
+
+    ate_before, ate_after = kf_ate(before), kf_ate(opt)
+    check(ate_after <= ate_before + 1e-4, f"slam: keyframe ATE {ate_after} after optimize, {ate_before} before")
+    traj_ate = ctx.ate_of(tracker.trajectory, poses_gt)["rmse"]
+
+    # Deferred booking against synchronous booking, on the card.
+    runs = {}
+    for defer in (True, False):
+        t_ = SlamTracker(dataclasses.replace(slam_cfg, defer_keyframe_booking=defer))
+        for i, f in enumerate(frames[:40]):
+            t_.process(f, float(i))
+        t_.flush_pending()
+        runs[defer] = t_
+    a_, b_ = runs[True], runs[False]
+    check([k.frame_index for k in a_._keyframes] == [k.frame_index for k in b_._keyframes],
+          "slam: deferred and synchronous keyframes differ")
+    check([e[:2] for e in a_._loop_edges] == [e[:2] for e in b_._loop_edges], "slam: loop edges differ by booking")
+    defer_gap = float(np.abs(np.stack(a_.trajectory.poses) - np.stack(b_.trajectory.poses)).max())
+    for ea, eb in zip(a_._loop_edges, b_._loop_edges):
+        defer_gap = max(defer_gap, float(np.abs(ea[2] - eb[2]).max()))
+    check(defer_gap <= 1e-6, f"slam: deferred and synchronous booking part by {defer_gap}")
+
+    # The card against the same code on the CPU, first 20 frames.
+    cpu_t = SlamTracker(dataclasses.replace(slam_cfg, device="cpu"))
+    gpu_t = SlamTracker(slam_cfg)
+    for i, f in enumerate(frames[:20]):
+        cpu_t.process(f, float(i))
+        gpu_t.process(f, float(i))
+    cpu_t.flush_pending()
+    gpu_t.flush_pending()
+    check([k.frame_index for k in cpu_t._keyframes] == [k.frame_index for k in gpu_t._keyframes],
+          "slam: card and CPU keyframes differ")
+    cpu_gap = float(np.abs(np.stack(cpu_t.trajectory.poses) - np.stack(gpu_t.trajectory.poses)).max())
+    check(cpu_gap <= TWIST_BAR_CPU, f"slam: card vs CPU poses {cpu_gap} > {TWIST_BAR_CPU}")
+
+    # Host copies and device kernels per frame, by the frame's place in the
+    # booking pipeline: a fresh tracker, frames 72-95 (the way back, where
+    # place recognition finds candidates to verify) each profiled on its own.
+    prof_t = SlamTracker(slam_cfg)
+    per_class = {}
+    for i, f in enumerate(frames[:96]):
+        if i < 72:
+            prof_t.process(f, float(i))
+            continue
+        pending = prof_t._pending_kf["stage"] if prof_t._pending_kf is not None else 0
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            res = prof_t.process(f, float(i))
+        names = [e.name for e in prof.events()]
+        row = {"syncs": sum(n_ == "cudaStreamSynchronize" for n_ in names),
+               "copies": sum(n_.startswith("cudaMemcpy") for n_ in names),
+               "kernels": sum(n_.startswith("cudaLaunchKernel") for n_ in names)}
+        cls = "event" if res.is_new_keyframe else ("plain" if pending == 0 else f"stage_{pending}")
+        per_class.setdefault(cls, []).append(row)
+    per_class = {c: {k_: statistics.median(r[k_] for r in rows) for k_ in ("syncs", "copies", "kernels")}
+                 | {"frames": len(rows)} for c, rows in per_class.items()}
+
+    steady = ms[10:]
+    event_ms = [ms[i] for i in events if i >= 10]
+    stage_ms = {f"event+{k_}": [ms[i + k_] for i in events if i >= 10 and i + k_ < n_frames] for k_ in (1, 2, 3, 4)}
+    emit("slam", frames=n_frames, keyframes=len(kfs), keyframe_frames=kf_frames, loops=n_loops,
+         loop_edges=[list(e[:2]) for e in tracker._loop_edges], loop_twist_gaps=loop_gaps,
+         keyframe_ate_before=ate_before, keyframe_ate_after=ate_after, trajectory_ate=traj_ate,
+         host_ms_per_frame_median=statistics.median(steady), host_ms_per_frame_p90=float(np.percentile(steady, 90)),
+         host_ms_per_frame_max=max(steady), host_ms_event_frames=event_ms,
+         host_ms_after_event={k_: (statistics.median(v) if v else None) for k_, v in stage_ms.items()},
+         flush_ms=flush_ms, optimize_ms=opt_ms, launches=stream_launches,
+         launches_per_frame={"gn_round": kf_rounds, "build_level_packed": kf_levels, "downsample_levels": 1},
+         optimize_launches=opt_launches,
+         per_frame_by_pipeline_place=per_class, deferred_vs_sync_gap_40=defer_gap, card_vs_cpu_gap_20=cpu_gap,
+         card=card)
+    return {"max_abs_err": bb_err, "ms": big["ms"], "plain_ms": big["plain_ms"], "bound_ms": big["bound_ms"],
+            "bound_by": big["bound_by"], "dependent_steps": big["dependent_steps"]}
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -198,7 +519,7 @@ def main() -> None:
     from realsensetracker_tpu_torch.api import AlignConfig, Tracker, TrackerConfig
     from realsensetracker_tpu_torch.data import synthetic
     from realsensetracker_tpu_torch.geometry import camera, se3
-    from realsensetracker_tpu_torch.kernels import build, downsample, gn_step, level_kernel
+    from realsensetracker_tpu_torch.kernels import backbone, build, downsample, gn_step, level_kernel
     from realsensetracker_tpu_torch.models import get_pipeline
     from realsensetracker_tpu_torch.ops import correspond, fpfh, pyramid, voxel
     from realsensetracker_tpu_torch.ops.cloud import Cloud
@@ -252,21 +573,24 @@ def main() -> None:
         level_kernel.LAUNCHES = 0
         for k in gn_step.LAUNCHES:
             gn_step.LAUNCHES[k] = 0
+        for k in backbone.LAUNCHES:
+            backbone.LAUNCHES[k] = 0
 
     def read_counts():
         torch.cuda.synchronize()
         got = {"downsample_levels": downsample.LAUNCHES, "build_level_packed": level_kernel.LAUNCHES,
-               **gn_step.LAUNCHES}
+               **gn_step.LAUNCHES, "backbone": sum(backbone.LAUNCHES.values())}
         for k, v in got.items():
             main_launches[k] += v
         return got
 
-    def check_counts(got, what, levels, gn_rounds, pyramids, systems=0):
+    def check_counts(got, what, levels, gn_rounds, pyramids, systems=0, backbones=0):
         """levels: level-kernel launches; gn_rounds: association rounds;
         pyramids: downsample launches (one per pyramid or source-level set);
-        systems: gn_system launches (joint RGB-D steps)."""
+        systems: gn_system launches (joint RGB-D steps); backbones: backbone
+        factor + apply launches."""
         want = {"downsample_levels": pyramids, "build_level_packed": levels, "gn_round": gn_rounds,
-                "gn_system": systems}
+                "gn_system": systems, "backbone": backbones}
         check(got == want, f"{what}: launches {got}, expected {want}")
 
     def bound(nbytes, flops):
@@ -275,7 +599,7 @@ def main() -> None:
         return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
     # ---- 2. build the kernels, one nvcc each, together -------------------
-    sources = (downsample.SOURCE, level_kernel.SOURCE, gn_step.SOURCE)
+    sources = (downsample.SOURCE, level_kernel.SOURCE, gn_step.SOURCE, backbone.SOURCE)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=len(sources)) as pool:
         list(pool.map(build.build, sources))
@@ -1129,23 +1453,33 @@ def main() -> None:
         knn_rows.append({"k": k, "k_smallest_ms": key_ms, "stable_sort_ms": sort_ms})
     emit("timing_knn", queries=d_chunk.shape[0], points=d_chunk.shape[1], rows=knn_rows, card=card)
 
+    # ---- 10-12. backbone kernel, pose graph, SLAM at 640x480 -------------
+    bb = backbone_and_slam_phases(types.SimpleNamespace(
+        dev=dev, card=card, reset_counts=reset_counts, read_counts=read_counts, check_counts=check_counts,
+        bound=bound, turns=turns, time_ms=time_ms, ate_of=ate_of, slam_intr=camera.TUM_DEFAULT,
+    ))
+
     for name, n in main_launches.items():
         check(n > 0, f"the main paths never launched {name}")
     errs = {"downsample_levels": ds_worst["abs"], "build_level_packed": max_err, "gn_round": gn_err,
-            "gn_system": sys_err}
+            "gn_system": sys_err, "backbone": bb["max_abs_err"]}
     times = {"downsample_levels": (ds_k, ds_p), "build_level_packed": (kernel_ms, plain_ms),
-             "gn_round": (gn_ms, gn_plain_ms), "gn_system": (sys_ms, sys_plain_ms)}
+             "gn_round": (gn_ms, gn_plain_ms), "gn_system": (sys_ms, sys_plain_ms),
+             "backbone": (bb["ms"], bb["plain_ms"])}
     bounds = {"downsample_levels": ds_bound, "build_level_packed": bound(level_bytes, level_flops),
-              "gn_round": gn_bound, "gn_system": sys_bound}
+              "gn_round": gn_bound, "gn_system": sys_bound, "backbone": (bb["bound_ms"], bb["bound_by"])}
     # No single PyTorch call computes any of these functions (a
     # validity-aware mean over several levels, a plane table, a round of
     # gated GNC Gauss-Newton with its 6x6 solves, a projective gather with
-    # its gated GNC system), so library_ms is null throughout.
+    # its gated GNC system, a block-LDL^T factor and solve of 6x6 blocks),
+    # so library_ms is null throughout. The backbone row is its factor and
+    # one apply at n = 1000, a chain of n + 2n dependent 6x6 steps.
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": main_launches[name], "max_abs_err": errs[name],
          "ms": times[name][0], "plain_ms": times[name][1],
-         "bound_ms": bounds[name][0], "bound_by": bounds[name][1], "library_ms": None}
+         "bound_ms": bounds[name][0], "bound_by": bounds[name][1], "library_ms": None,
+         **({"dependent_steps": bb["dependent_steps"]} if name == "backbone" else {})}
         for name, (source, replaces) in KERNELS.items()
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -6,13 +6,15 @@ shades every surface point the same from every view (world-anchored
 albedo, texture and light), which direct RGB-D alignment relies on. Random
 draws come from a ``torch.Generator``, so ``default_scene(seed)`` places
 its spheres elsewhere than JAX's; to compare the two renderers, hand the
-same scene arrays to both.
+same scene arrays to both. ``lap_graph`` makes pose-graph problems
+(drifted laps with exact loop edges) from a numpy seed.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from realsensetracker_tpu_torch.geometry import camera, se3
@@ -229,3 +231,26 @@ def render_trajectory_rgbd(
     poses = poses.to(dev)
     frames = [render_rgbd(intr, T, scene) for T in poses]
     return torch.stack([d for d, _ in frames]), torch.stack([c for _, c in frames]), poses
+
+
+def lap_graph(laps: int, per_lap: int, seed: int = 3, noise: float = 0.01, loop_every: int = 20,
+              step_length: float = 0.3):
+    """A pose-graph problem of ``laps`` laps round a circle of ``per_lap``
+    steps, as tests/test_posegraph_loops.py:96-120 builds its 1000-node
+    graph (numpy seed, f32 poses): ground truth, odometry drifted by a
+    twist of ``noise`` * N(0, 1) per step, and loop edges every
+    ``loop_every`` nodes from each node of a later lap to the node one lap
+    before, exact in the truth. Returns (gt (N,4,4), est (N,4,4), loops
+    [(i, j, T_ij, 1.0)]) as numpy."""
+    n = laps * per_lap
+    rng = np.random.RandomState(seed)
+    step = se3.exp(torch.tensor([step_length, 0, 0, 0, 0, 2 * np.pi / per_lap], dtype=torch.float32)).numpy()
+    gt, est = [np.eye(4, dtype=np.float32)], [np.eye(4, dtype=np.float32)]
+    for _ in range(n - 1):
+        gt.append((gt[-1] @ step).astype(np.float32))
+        drift = se3.exp(torch.tensor(noise * rng.randn(6), dtype=torch.float32)).numpy()
+        est.append((est[-1] @ step @ drift).astype(np.float32))
+    gt, est = np.stack(gt), np.stack(est)
+    loops = [(i - per_lap, i, (np.linalg.inv(gt[i - per_lap]) @ gt[i]).astype(np.float32), 1.0)
+             for i in range(per_lap, n, loop_every)]
+    return gt, est, loops

@@ -28,6 +28,7 @@ from realsensetracker_tpu_torch.tracking.frame_to_model import FrameToModelTrack
 from realsensetracker_tpu_torch.tracking.keyframe import KeyframeTracker
 from realsensetracker_tpu_torch.tracking.keyframe_rgbd import RgbdKeyframeTracker
 from realsensetracker_tpu_torch.tracking.rgbd import RgbdTracker
+from realsensetracker_tpu_torch.tracking.slam import SlamConfig, SlamTracker, _Keyframe
 from realsensetracker_tpu_torch.tracking.trajectory import Trajectory
 
 
@@ -246,4 +247,51 @@ def rgbd_keyframe_state_from_jax(jax_tracker, device=device_mod.DEFAULT) -> Rgbd
     tracker.last_span_failures = int(jax_tracker.last_span_failures)
     tracker._index = int(jax_tracker._index)
     tracker.trajectory = _trajectory(jax_tracker.trajectory)
+    return tracker
+
+
+def slam_config_from_jax(cfg, device=device_mod.DEFAULT) -> SlamConfig:
+    """A JAX SlamConfig as the port's, every field carried over."""
+    fields = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(SlamConfig) if f.name != "device"}
+    fields["intrinsics"] = intrinsics_from_jax(cfg.intrinsics)
+    fields["icp"] = icp_config_from_jax(cfg.icp)
+    fields["align"] = align_config_from_jax(cfg.align)
+    fields["rgbd"] = rgbd_config_from_jax(cfg.rgbd) if cfg.rgbd is not None else None
+    return SlamConfig(**fields, device=str(device))
+
+
+def slam_state_from_jax(jax_slam, device=device_mod.DEFAULT) -> SlamTracker:
+    """A port SlamTracker that continues the JAX SlamTracker's stream: its
+    VO (keyframe_state_from_jax or rgbd_keyframe_state_from_jax), keyframes,
+    database (re-added, as load_slam rebuilds it), loop edges, counters and
+    lost flag. A keyframe in the JAX tracker's booking pipeline is booked
+    first."""
+    jax_slam.flush_pending()
+    tracker = SlamTracker(slam_config_from_jax(jax_slam.config, device))
+    if tracker.config.use_rgb:
+        tracker._vo = rgbd_keyframe_state_from_jax(jax_slam._vo, device)
+    else:
+        tracker._vo = keyframe_state_from_jax(jax_slam._vo, device)
+    for kf in jax_slam._keyframes:
+        cloud = cloud_from_jax(kf.cloud, device)
+        feats = _tensor(kf.feats, device)
+        tracker._keyframes.append(_Keyframe(
+            index=int(kf.index),
+            frame_index=int(kf.frame_index),
+            pose=np.asarray(kf.pose, np.float32),
+            cloud=cloud,
+            feats=feats,
+            odom_from_prev=None if kf.odom_from_prev is None else np.asarray(kf.odom_from_prev, np.float32),
+            odom_weight=float(kf.odom_weight),
+            depth=None if kf.depth is None else np.asarray(kf.depth, np.float32),
+        ))
+        tracker._db.add(int(kf.index), cloud, feats)
+    tracker._loop_edges = [(int(i), int(j), np.asarray(T, np.float32), float(w))
+                           for i, j, T, w in jax_slam._loop_edges]
+    tracker.num_loop_closures = jax_slam.num_loop_closures
+    tracker.num_relocalizations = int(jax_slam.num_relocalizations)
+    tracker.num_online_optimizations = jax_slam.num_online_optimizations
+    tracker.lost = bool(jax_slam.lost)
+    tracker._frame_count = int(jax_slam._frame_count)
+    tracker._optimize_due = bool(jax_slam._optimize_due)
     return tracker

@@ -7,6 +7,8 @@
 * gn_step: one Gauss-Newton association round of projective ICP per
   launch -- association into the plane table, then per inner iteration the
   6x6 reduction, damped solve and SE(3) update.
+* backbone: the pose graph's block-LDL^T backbone preconditioner, its
+  factor and its apply (the port's own kernel: JAX's is plain XLA).
 """
 
 from realsensetracker_tpu_torch.kernels.level_kernel import build_level_packed  # noqa: F401

@@ -37,7 +37,7 @@ from realsensetracker_tpu_torch.align import projective
 from realsensetracker_tpu_torch.api import Tracker, TrackerConfig
 from realsensetracker_tpu_torch.data import synthetic
 from realsensetracker_tpu_torch.geometry import camera, se3
-from realsensetracker_tpu_torch.kernels import downsample, gn_step, level_kernel
+from realsensetracker_tpu_torch.kernels import backbone, downsample, gn_step, level_kernel
 from realsensetracker_tpu_torch.ops import pyramid
 from realsensetracker_tpu_torch.parallel import batched
 from realsensetracker_tpu_torch.tracking.keyframe import KeyframeTracker
@@ -567,3 +567,114 @@ def test_pipelines_run_on_the_card_by_default(cuda, name):
     assert (level_kernel.LAUNCHES > before) == (name in ("projective-icp", "keyframe"))
     assert _twist_gap(got.transform, ref.transform) < 1e-3
     assert _twist_gap(got.transform, se3.exp(twist)) < 5e-3
+
+
+# --- the backbone preconditioner and pose-graph optimization ------------------
+
+
+def _backbone_blocks(n, seed=0):
+    """The backbone blocks of a random chain: each chain edge's 6x12
+    Jacobian adds J_i^T J_i and J_j^T J_j to its nodes' diagonal blocks and
+    J_i^T J_j above them, + I (a well-conditioned system), node 0 an
+    identity block."""
+    g = torch.Generator().manual_seed(seed)
+    J = torch.randn((n - 1, 6, 12), generator=g)
+    Ji, Jj = J[:, :, :6], J[:, :, 6:]
+    D = torch.zeros((n, 6, 6)) + torch.eye(6)
+    D[:-1] += Ji.transpose(1, 2) @ Ji
+    D[1:] += Jj.transpose(1, 2) @ Jj
+    D[0] = torch.eye(6)
+    O = Ji.transpose(1, 2) @ Jj
+    O[0] = 0.0
+    return D.contiguous(), O.contiguous(), torch.randn(6 * n, generator=g)
+
+
+def _rel(got, ref):
+    return ((got - ref).abs().max() / ref.abs().max()).item()
+
+
+@pytest.mark.parametrize("n", [8, 64, 1000])
+def test_backbone_kernel_matches_reference(cuda, n):
+    """Factor and apply against their plain versions on the same card
+    tensors: S_inv, U and z within 1e-4 of their largest entry (f32 sums
+    in another order, compounded along the chain); the launch counts."""
+    D, O, r = (t.to(cuda) for t in _backbone_blocks(n))
+    before = dict(backbone.LAUNCHES)
+    S_inv, U = backbone.backbone_factor(D, O)
+    z = backbone.backbone_apply(S_inv, U, r)
+    S_ref, U_ref = backbone.backbone_factor_reference(D, O)
+    z_ref = backbone.backbone_apply_reference(S_ref, U_ref, r)
+    z_mixed = backbone.backbone_apply(S_ref.contiguous(), U_ref.contiguous(), r)
+    torch.cuda.synchronize()
+    assert backbone.LAUNCHES == {"backbone_factor": before["backbone_factor"] + 1,
+                                 "backbone_apply": before["backbone_apply"] + 2}
+    assert _rel(S_inv, S_ref) < 1e-4
+    if n > 1:
+        assert _rel(U, U_ref) < 1e-4
+    assert _rel(z, z_ref) < 1e-4
+    assert _rel(z_mixed, z_ref) < 1e-5  # the apply alone, on the same factors
+    # M z = r: the factor solves the block-tridiagonal system.
+    M = torch.zeros((6 * n, 6 * n), dtype=torch.float64, device=cuda)
+    for i in range(n):
+        M[6 * i : 6 * i + 6, 6 * i : 6 * i + 6] = D[i]
+        if i + 1 < n:
+            M[6 * i : 6 * i + 6, 6 * i + 6 : 6 * i + 12] = O[i]
+            M[6 * i + 6 : 6 * i + 12, 6 * i : 6 * i + 6] = O[i].T
+    M = M + 1e-10 * torch.eye(6 * n, dtype=torch.float64, device=cuda)
+    resid = (M @ z.double() - r.double()).abs().max() / r.abs().max()
+    assert resid.item() < 1e-5
+
+
+def test_backbone_kernel_non_finite_guard(cuda):
+    """A singular block (D_k = -1e-10 I and no coupling, so S_k = 0 exactly)
+    leaves non-finite factors from that node on, in the kernel as in the
+    plain version (inv_ex's LU), and the apply then returns r itself, as
+    CG's guard does; a NaN in D or in r does the same."""
+    n, k = 64, 17
+    D, O, r = (t.to(cuda) for t in _backbone_blocks(n, seed=1))
+    D[k] = -backbone.DIAG * torch.eye(6, device=cuda)
+    O[k - 1] = 0.0
+    def bad(S):  # blocks with a non-finite entry
+        return (~torch.isfinite(S)).flatten(1).any(-1)
+
+    S_inv, U = backbone.backbone_factor(D, O)
+    S_ref, U_ref = backbone.backbone_factor_reference(D, O)
+    assert torch.equal(bad(S_inv), bad(S_ref)) and bad(S_inv)[k] and not bad(S_inv)[:k].any()
+    assert torch.equal(backbone.backbone_apply(S_inv, U, r), r)
+    assert torch.equal(backbone.backbone_apply_reference(S_ref, U_ref, r), r)
+    # A NaN in D: the plain version on the CPU (LAPACK, as JAX's) carries it
+    # on; torch.linalg.inv_ex on the card returns finite numbers for a
+    # matrix with a NaN entry, so the card's plain version is not the yardstick.
+    D_nan = _backbone_blocks(n)[0].to(cuda)
+    D_nan[k, 2, 3] = float("nan")
+    S_nan, U_nan = backbone.backbone_factor(D_nan, O)
+    assert torch.equal(bad(S_nan).cpu(), bad(backbone.backbone_factor_reference(D_nan.cpu(), O.cpu())[0]))
+    assert torch.equal(backbone.backbone_apply(S_nan, U_nan, r), r)
+    good_S, good_U = backbone.backbone_factor(*(t.to(cuda) for t in _backbone_blocks(n)[:2]))
+    r_nan = r.clone()
+    r_nan[5] = float("nan")
+    assert torch.equal(backbone.backbone_apply(good_S, good_U, r_nan).isnan(), r_nan.isnan())
+
+
+def test_optimize_pose_graph_on_cuda_matches_cpu(cuda):
+    """A 64-node graph (two laps of 32, a loop edge every 4 nodes): three GN
+    iterations of 60 backbone-preconditioned CG steps (the cost falls to
+    its floor), the card within 1e-4 of the CPU; each GN iteration
+    factors once and applies cg_iters + 1 times."""
+    from realsensetracker_tpu_torch.optimize import pose_graph as pg
+
+    gt, est, loops = synthetic.lap_graph(2, 32, seed=3, loop_every=4)
+    out = {}
+    for dev in ("cpu", cuda):
+        before = dict(backbone.LAUNCHES)
+        graph = pg.from_trajectory(est, loop_edges=loops, device=dev)
+        poses, cost = pg.optimize_pose_graph(graph, gn_iters=3, cg_iters=60)
+        out[str(dev)] = (poses.cpu(), float(cost))
+        if dev != "cpu":
+            assert backbone.LAUNCHES == {"backbone_factor": before["backbone_factor"] + 3,
+                                         "backbone_apply": before["backbone_apply"] + 3 * 61}
+    (p_cpu, c_cpu), (p_gpu, c_gpu) = out["cpu"], out[str(cuda)]
+    assert (p_gpu - p_cpu).abs().max().item() < 1e-4
+    assert abs(c_gpu / c_cpu - 1) < 1e-4
+    err_before = np.abs(est[:, :3, 3] - gt[:, :3, 3]).max()
+    assert np.abs(p_gpu.numpy()[:, :3, 3] - gt[:, :3, 3]).max() < 0.5 * err_before
