@@ -9,7 +9,8 @@ need for JAX. Phases, one JSON line each:
 
   1. device     -- the card (name and power limit from nvidia-smi); TF32 off.
   2. build      -- builds csrc/downsample.cu, csrc/level_kernel.cu,
-                   csrc/gn_step.cu and csrc/backbone.cu, one nvcc each, started
+                   csrc/gn_step.cu, csrc/backbone.cu, csrc/tsdf_integrate.cu
+                   and csrc/tsdf_raycast.cu, one nvcc each, started
                    together.
   2b. downsample_kernel -- holds downsample_levels against its plain torch
                    version (validity identical, depth within 2 ulp; the
@@ -133,8 +134,41 @@ need for JAX. Phases, one JSON line each:
                    event, syncs, copies and device kernels per frame by its
                    place in the booking pipeline.
 
+  13. tsdf_kernels -- holds the port's own TSDF kernels against their plain
+                   versions on the card: csrc/tsdf_integrate.cu over 10
+                   fused 640x480 frames into the default 128^3 x 4 cm
+                   volume, full pass, slab window (integrate_slab=96) and
+                   colored (tsdf, weight and color within 1e-6, the update
+                   masks identical), and csrc/tsdf_raycast.cu, raycast and
+                   raycast_coarse_to_fine(coarse=4) at 640x480 on the
+                   fused volume (hit masks identical, depth within 1e-5
+                   where both hit); times both against their plain versions
+                   at 128^3 and at KinectFusion's 512^3 (1 GiB of tsdf and
+                   weight), with the bounds and the march's gather count.
+  14. tsdf      -- Tracker(method="tsdf"), default TsdfConfig, over the 30
+                   u16 frames of phase 7, per frame and in windows of 8 in
+                   turns: every frame succeeds, ATE rmse < 0.02 m, the modes
+                   within 1e-6, one device-to-host copy per frame and per
+                   window, the first 3 frames within 1e-4 of the CPU run,
+                   per tracked frame sum(iters) gn_round launches, one
+                   raycast and one integrate; ms per frame, device kernels
+                   per frame and the busy share; then again with
+                   track_scale=2, raycast_coarse=4.
+  15. tsdf_rgbd -- use_color with photometric=RgbdIcpConfig() over 10
+                   RGB-D frames: every frame succeeds, gn_system launches
+                   sum(iters) + 1 per tracked frame; ms per frame.
+  16. mesh_surface -- extract_mesh (131072 triangles) and
+                   extract_surface_oriented of phase 14's volume: counts
+                   and masks equal to the CPU run's, vertices within 1e-5.
+  17. submaps   -- Tracker(method="tsdf", tsdf_submap_radius=0.96) along a
+                   3 m corridor and back that leaves a 96^3 x 4 cm volume:
+                   >= 2 spawns and >= 1 re-entry; optimize_atlas of the
+                   same walk without re-entry accepts >= 1 loop edge; ms
+                   per frame and per optimize_atlas.
+
 Each main path (register, register_normal_space, tracker, keyframe,
-world_map, model, icp, gicp, align_pair, rgbd, pose_graph, slam) runs with every launch count set
+world_map, model, icp, gicp, align_pair, rgbd, pose_graph, slam, tsdf,
+tsdf_rgbd, submaps) runs with every launch count set
 to 0 just before it and read just after; a kernel the path runs must have
 launched there, and the cloud paths (model, icp, gicp, align_pair), which
 run no kernel of their own, must have launched none. Then the kernels line, with each kernel's bound (the
@@ -197,6 +231,10 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
     # Not a Pallas kernel: the plain-XLA lax.scans of the backbone
     # preconditioner's factor (:222) and apply (:232), the port's own kernel.
     "backbone": ("realsensetracker_tpu_torch/csrc/backbone.cu", "realsensetracker_tpu/optimize/pose_graph.py:222,232"),
+    # Not Pallas kernels either: the plain-XLA integrate (_fuse_block :277)
+    # and raycast march (_march :446, _refine_subvoxel :548), the port's own.
+    "tsdf_integrate": ("realsensetracker_tpu_torch/csrc/tsdf_integrate.cu", "realsensetracker_tpu/mapping/tsdf.py:277"),
+    "tsdf_raycast": ("realsensetracker_tpu_torch/csrc/tsdf_raycast.cu", "realsensetracker_tpu/mapping/tsdf.py:446,548"),
 }
 
 
@@ -507,6 +545,360 @@ def backbone_and_slam_phases(ctx) -> dict:
             "bound_by": big["bound_by"], "dependent_steps": big["dependent_steps"]}
 
 
+def dense_phases(ctx) -> dict:
+    """Phases 13-17: the TSDF integrate and raycast kernels against their
+    plain versions (and timed at 128^3 and 512^3), Tracker(method="tsdf")
+    at 640x480 (the dense main path), its photometric variant, mesh and
+    surface extraction, and the submap atlas. ctx carries main()'s helpers
+    (dev, card, reset_counts, read_counts, check_counts, bound, turns,
+    time_ms, ate_of, twist_gap, trace_calls, intr: the camera). Returns the
+    two kernel rows' numbers for the kernels line."""
+    import numpy as np
+    import torch
+
+    from realsensetracker_tpu_torch.align import projective
+    from realsensetracker_tpu_torch.align.rgbd import RgbdIcpConfig
+    from realsensetracker_tpu_torch.api import Tracker, TrackerConfig
+    from realsensetracker_tpu_torch.data import synthetic
+    from realsensetracker_tpu_torch.geometry import se3
+    from realsensetracker_tpu_torch.kernels import tsdf as tsdf_kernels
+    from realsensetracker_tpu_torch.mapping import mesh as mesh_mod
+    from realsensetracker_tpu_torch.mapping import submaps as submaps_mod
+    from realsensetracker_tpu_torch.mapping import tsdf as tsdf_mod
+
+    dev, card, intr = ctx.dev, ctx.card, ctx.intr
+    cfg = tsdf_mod.TsdfConfig()  # 128^3 x 4 cm
+    h, w = intr.height, intr.width
+
+    def profile_frame(run):
+        """(device kernels launched, device busy share of the host time, host
+        ms) of one call of run(), profiler on."""
+        run()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        events = prof.events()
+        api = sum(e.name.startswith("cudaLaunchKernel") for e in events)
+        device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy, end = 0.0, float("-inf")
+        for a, b in sorted((e.time_range.start, e.time_range.end) for e in device):
+            busy += max(0.0, b - max(a, end))
+            end = max(end, b)
+        return api, busy / wall_us, wall_us / 1e3
+
+    # A corridor: spheres along +x in front of a wall at 2.2 m and a floor
+    # 0.9 m below the camera (tests/test_submaps.py:36-47, 24 spheres over
+    # 4.5 m). Phase 17 walks it; phase 13's slab case fuses its first
+    # frames, whose update support fits a 96^3 window (the default scene's
+    # wall at 4 m does not).
+    span, out_n = 3.0, 50
+    rng = np.random.RandomState(3)
+    cx = np.linspace(-0.5, span + 1.0, 24)
+    centers = np.stack([cx, rng.uniform(-0.3, 0.55, 24), rng.uniform(0.9, 1.6, 24)], 1).astype(np.float32)
+    radii = rng.uniform(0.16, 0.32, 24).astype(np.float32)
+    corridor = synthetic.Scene(torch.from_numpy(centers).to(dev), torch.from_numpy(radii).to(dev),
+                               floor_y=0.9, wall_z=2.2)
+    out_poses = np.tile(np.eye(4, dtype=np.float32), (out_n, 1, 1))
+    out_poses[:, 0, 3] = np.linspace(0.0, span, out_n)
+    atlas_poses = torch.from_numpy(np.concatenate([out_poses, out_poses[::-1][1:]])).to(dev)
+    atlas_depths = torch.stack([synthetic.render_depth(intr, P_, corridor) for P_ in atlas_poses])
+
+    # ---- 13. tsdf_kernels: integrate and raycast vs plain versions ----------
+    depths, colors, poses = synthetic.render_trajectory_rgbd(intr, 10, seed=0, device=dev)
+    colors = colors.contiguous()
+    worst = {"integrate": 0.0, "raycast": 0.0}
+
+    def fuse_both(cfg_, color, depths_=depths, poses_=poses):
+        vk = tsdf_mod.init_volume(cfg_, with_color=color, device=dev)
+        vp = tsdf_mod.clone_volume(vk)
+        fits_n = 0
+        for i in range(depths_.shape[0]):
+            c = colors[i] if color else None
+            pcw = se3.inverse(poses_[i])
+            start = fits = None
+            if 0 < cfg_.integrate_slab < cfg_.resolution:
+                start, fits = tsdf_mod.slab_window(depths_[i], poses_[i], intr, cfg_)
+                fits_n += int(fits)
+            tsdf_kernels.fuse_block(vk, depths_[i], c, pcw, intr, cfg_, start=start, fits=fits)
+            tsdf_kernels.fuse_block_reference(vp, depths_[i], c, pcw, intr, cfg_, start=start, fits=fits)
+        torch.cuda.synchronize()
+        check(torch.equal(vk.weight > 0, vp.weight > 0), "tsdf_kernels: integrate update masks differ")
+        gap = max((a - b).abs().max().item() for a, b in zip(vk, vp) if a is not None)
+        check(gap <= 1e-6, f"tsdf_kernels: integrate gap {gap} > 1e-6")
+        worst["integrate"] = max(worst["integrate"], gap)
+        bits = all(torch.equal(a, b) for a, b in zip(vk, vp) if a is not None)
+        return vk, {"volume": cfg_.resolution, "slab": cfg_.integrate_slab, "color": color, "max_abs_err": gap,
+                    "bit_identical": bits, "observed_voxels": int((vk.weight > 0).sum()), "slab_fits": fits_n}
+
+    vol, full_case = fuse_both(cfg, False)
+    _, slab_case = fuse_both(cfg._replace(integrate_slab=96), False, atlas_depths[:10], atlas_poses[:10])
+    check(slab_case["slab_fits"] > 0, "tsdf_kernels: the slab window never engaged")
+    _, color_case = fuse_both(cfg, True)
+
+    field = tsdf_mod.march_field(vol)
+    T = poses[-1]
+
+    def c2f_reference(coarse):
+        ci = tsdf_mod.coarse_intrinsics(intr, coarse)
+        dc = tsdf_kernels.march_reference(field, T, ci, cfg, cfg.num_steps)
+        z0, seeded = tsdf_mod.coarse_seeds(dc, coarse, cfg)
+        return tsdf_kernels.march_reference(field, T, intr, cfg, cfg.refine_steps, z_start=z0, gate=seeded,
+                                            subvoxel_iters=cfg.subvoxel_iters)
+
+    ray_cases = []
+    for name, got, ref in (
+        ("raycast", tsdf_mod.raycast(vol, T, intr, cfg),
+         tsdf_kernels.march_reference(field, T, intr, cfg, cfg.num_steps, subvoxel_iters=cfg.subvoxel_iters)),
+        ("raycast_coarse_to_fine(coarse=4)", tsdf_mod.raycast_coarse_to_fine(vol, T, intr, cfg, 4, cfg.refine_steps),
+         c2f_reference(4)),
+    ):
+        torch.cuda.synchronize()
+        check(torch.equal(got > 0, ref > 0), f"tsdf_kernels: {name} hit masks differ")
+        hit = got > 0
+        gap = (got[hit] - ref[hit]).abs().max().item() if bool(hit.any()) else 0.0
+        check(gap <= 1e-5, f"tsdf_kernels: {name} depth gap {gap} > 1e-5")
+        worst["raycast"] = max(worst["raycast"], gap)
+        ray_cases.append({"case": name, "hits": int(hit.sum()), "max_abs_err": gap,
+                          "bit_identical": bool(torch.equal(got, ref))})
+
+    def integrate_bound(cfg_, vol_, depth, pose):
+        """Bytes: the frame read once, tsdf and weight read and written at
+        each voxel this frame updates; operations: ~25 per voxel visited
+        (coordinates, projection, gates) and ~10 per update."""
+        before = tsdf_mod.clone_volume(vol_)
+        tsdf_mod.integrate(vol_, depth, pose, intr, cfg_)
+        upd = int(((vol_.weight != before.weight) | (vol_.tsdf != before.tsdf)).sum())
+        v3 = cfg_.resolution ** 3
+        return ctx.bound(depth.numel() * 4 + upd * 16, v3 * 25 + upd * 10), upd
+
+    def raycast_bound(cfg_, out):
+        """Gathers: per ray the start sample and one per march step up to its
+        hit (all n_steps for a miss), 16 per refined hit; bytes: the distinct
+        field words those can touch (at most V^3) and the depth written;
+        operations: ~30 per gather."""
+        step = cfg_.step_frac * cfg_.trunc
+        hit = out > 0
+        steps = torch.where(hit, torch.ceil((out - cfg_.min_depth) / step).clamp(1, cfg_.num_steps),
+                            float(cfg_.num_steps))
+        gathers = int(steps.sum().item()) + out.numel() + int(hit.sum()) * 16 * cfg_.subvoxel_iters
+        return ctx.bound(min(gathers, cfg_.resolution ** 3) * 4 + out.numel() * 4, gathers * 30), gathers
+
+    pcw = se3.inverse(T)
+    timing = {}
+    ik, ip = ctx.turns(lambda: tsdf_kernels.fuse_block_reference(vol, depths[-1], None, pcw, intr, cfg),
+                       lambda: tsdf_kernels.fuse_block(vol, depths[-1], None, pcw, intr, cfg), 3, 50)
+    (ib, ib_by), upd = integrate_bound(cfg, tsdf_mod.clone_volume(vol), depths[-1], T)
+    rk, rp = ctx.turns(
+        lambda: tsdf_kernels.march_reference(field, T, intr, cfg, cfg.num_steps, subvoxel_iters=cfg.subvoxel_iters),
+        lambda: tsdf_kernels.march(field, T, intr, cfg, cfg.num_steps, subvoxel_iters=cfg.subvoxel_iters), 2, 20)
+    (rb, rb_by), gathers = raycast_bound(cfg, tsdf_mod.raycast(vol, T, intr, cfg))
+    timing[128] = {"integrate_ms": ik, "integrate_plain_ms": ip, "integrate_bound_ms": ib,
+                   "integrate_bound_by": ib_by, "updated_voxels": upd, "raycast_ms": rk, "raycast_plain_ms": rp,
+                   "raycast_bound_ms": rb, "raycast_bound_by": rb_by, "raycast_gathers": gathers}
+
+    # KinectFusion's 512^3 volume: 1 GiB of tsdf + weight (the 5.12 m cube at 1 cm).
+    cfg512 = tsdf_mod.sized_config(resolution=512, voxel_size=0.01)
+    vol512 = tsdf_mod.init_volume(cfg512, device=dev)
+    for i in range(depths.shape[0]):
+        tsdf_mod.integrate(vol512, depths[i], poses[i], intr, cfg512)
+    field512 = tsdf_mod.march_field(vol512)
+    ik5, ip5 = ctx.turns(lambda: tsdf_kernels.fuse_block_reference(vol512, depths[-1], None, pcw, intr, cfg512),
+                         lambda: tsdf_kernels.fuse_block(vol512, depths[-1], None, pcw, intr, cfg512), 1, 10)
+    (ib5, ib5_by), upd5 = integrate_bound(cfg512, tsdf_mod.clone_volume(vol512), depths[-1], T)
+    rk5, rp5 = ctx.turns(
+        lambda: tsdf_kernels.march_reference(field512, T, intr, cfg512, cfg512.num_steps, subvoxel_iters=1),
+        lambda: tsdf_kernels.march(field512, T, intr, cfg512, cfg512.num_steps, subvoxel_iters=1), 1, 10)
+    out512 = tsdf_mod.raycast(vol512, T, intr, cfg512)
+    (rb5, rb5_by), gathers5 = raycast_bound(cfg512, out512)
+    timing[512] = {"integrate_ms": ik5, "integrate_plain_ms": ip5, "integrate_bound_ms": ib5,
+                   "integrate_bound_by": ib5_by, "updated_voxels": upd5, "raycast_ms": rk5,
+                   "raycast_plain_ms": rp5, "raycast_bound_ms": rb5, "raycast_bound_by": rb5_by,
+                   "raycast_gathers": gathers5, "hits": int((out512 > 0).sum())}
+    del vol512, field512
+    emit("tsdf_kernels", frame=[h, w], integrate_cases=[full_case, slab_case, color_case], raycast_cases=ray_cases,
+         timing=timing, card=card)
+
+    # ---- 14. tsdf: Tracker(method="tsdf") at 640x480 (main path) ------------
+    # The 30-frame random walk of phase 7, u16 millimetres at depth_scale 1e-3.
+    walk_d, walk_poses = synthetic.render_trajectory(intr, 30, seed=0, device=dev)
+    frames = [np.clip(d * 1000.0, 0, 65000).astype(np.uint16) for d in walk_d.cpu().numpy()]
+    frames_dev = [torch.from_numpy(f).to(dev) for f in frames]
+    icp_cfg = projective.fit_levels(projective.ProjectiveIcpConfig(), h, w)
+    levels, rounds = len(icp_cfg.iters), sum(icp_cfg.iters)
+
+    def tsdf_tracker(**tsdf_kw):
+        return Tracker(TrackerConfig(intrinsics=intr, method="tsdf", tsdf=cfg._replace(**tsdf_kw), device="cuda"))
+
+    def run_modes(tsdf_kw, window=8):
+        """Per frame and process_window(window) over the 30 frames, one window
+        of frames each in turns: (per-frame results, windowed results,
+        per-frame launches, host ms per frame of each mode)."""
+        warm = tsdf_tracker(**tsdf_kw)  # library initialisation, outside every count and time
+        warm.process_window(frames_dev[:3], window=window)
+        per, win = tsdf_tracker(**tsdf_kw), tsdf_tracker(**tsdf_kw)
+        pr, wr, pms, wms = [], [], [], []
+        launches = {}
+        for s in range(0, len(frames_dev), window):
+            chunk = frames_dev[s:s + window]
+            ts = [float(i) for i in range(s, s + len(chunk))]
+            ctx.reset_counts()
+            t0 = time.perf_counter()
+            pr += [per.process(f, t) for f, t in zip(chunk, ts)]
+            pms.append((time.perf_counter() - t0) * 1e3 / len(chunk))
+            for k, v in ctx.read_counts().items():
+                launches[k] = launches.get(k, 0) + v
+            ctx.reset_counts()
+            t0 = time.perf_counter()
+            wr += win.process_window(chunk, ts, window=window)
+            wms.append((time.perf_counter() - t0) * 1e3 / len(chunk))
+            ctx.read_counts()
+        return per, win, pr, wr, launches, pms, wms
+
+    per, win, pr, wr, launches, pms, wms = run_modes({})
+    n = len(frames_dev)
+    tracked = n - 1
+    ctx.check_counts(launches, "tsdf per frame", levels * tracked, rounds * tracked, 2 * tracked,
+                     integrates=n, raycasts=tracked)
+    check(all(r.success for r in pr) and all(r.success for r in wr), "tsdf: a frame failed")
+    pose_gap = max(float(np.abs(a.pose - b.pose).max()) for a, b in zip(pr, wr))
+    check(pose_gap <= 1e-6, f"tsdf: process_window parts from per-frame process by {pose_gap}")
+    tsdf_ate = ctx.ate_of(per.trajectory, walk_poses)
+    check(tsdf_ate["rmse"] < ATE_BAR, f"tsdf: ATE rmse {tsdf_ate['rmse']} >= {ATE_BAR}")
+    frame_copies, frame_dev_ms = ctx.trace_calls(lambda i: per.process(frames_dev[i]), 2)
+    frame_syncs = frame_copies.get("cudaStreamSynchronize", 0)
+    frame_dtoh = sum(v for k, v in frame_copies.items() if "DtoH" in k)
+    check(frame_syncs == 1 and frame_dtoh <= 1, f"tsdf: {frame_syncs} host copies per frame ({frame_copies})")
+    win_copies, _ = ctx.trace_calls(lambda i: win.process_window(frames_dev[:8], window=8), 1)
+    win_syncs = win_copies.get("cudaStreamSynchronize", 0)
+    win_dtoh = sum(v for k, v in win_copies.items() if "DtoH" in k)
+    check(win_syncs == 1 and win_dtoh <= 1, f"tsdf: {win_syncs} host copies per window ({win_copies})")
+    kernels_pf, busy_pf, host_pf = profile_frame(lambda: per.process(frames_dev[5]))
+    cpu = Tracker(TrackerConfig(intrinsics=intr, method="tsdf", tsdf=cfg, device="cpu"))
+    cpu_poses = [cpu.process(f).pose for f in frames[:3]]
+    vs_cpu = ctx.twist_gap(cpu_poses, [r.pose for r in pr[:3]])
+    check(vs_cpu <= TWIST_BAR_CPU, f"tsdf: CUDA vs CPU twist {vs_cpu} > {TWIST_BAR_CPU}")
+    # The reduced render: tracking at 320x240 with the coarse-to-fine raycast.
+    per2, _, pr2, wr2, launches2, pms2, wms2 = run_modes({"track_scale": 2, "raycast_coarse": 4})
+    ctx.check_counts(launches2, "tsdf track_scale=2", levels * tracked, rounds * tracked, 3 * tracked,
+                     integrates=n, raycasts=2 * tracked)
+    check(all(r.success for r in pr2), "tsdf track_scale=2: a frame failed")
+    ts2_ate = ctx.ate_of(per2.trajectory, walk_poses)
+    copies2, _ = ctx.trace_calls(lambda i: per2.process(frames_dev[i]), 2)
+    syncs2 = copies2.get("cudaStreamSynchronize", 0)
+    check(syncs2 == 1, f"tsdf track_scale=2: {syncs2} host copies per frame ({copies2})")
+    kernels2, busy2, host2 = profile_frame(lambda: per2.process(frames_dev[5]))
+    emit("tsdf", frames=n, config={"volume": cfg.resolution, "voxel_size": cfg.voxel_size, "iters": list(icp_cfg.iters)},
+         ate_rmse=tsdf_ate["rmse"], twist_vs_cpu_3=vs_cpu, window_pose_gap=pose_gap, launches=launches,
+         host_copies_per_frame=frame_syncs, host_copies_per_window=win_syncs, copies_and_syncs_per_frame=frame_copies,
+         ms_per_frame_median=statistics.median(pms[1:]), windowed_ms_per_frame_median=statistics.median(wms[1:]),
+         device_ms_per_frame=frame_dev_ms, device_kernels_per_frame=kernels_pf, busy_share=busy_pf,
+         profiled_host_ms=host_pf,
+         track_scale2_coarse4={"ate_rmse": ts2_ate["rmse"], "launches": launches2,
+                               "ms_per_frame_median": statistics.median(pms2[1:]),
+                               "windowed_ms_per_frame_median": statistics.median(wms2[1:]),
+                               "device_kernels_per_frame": kernels2, "busy_share": busy2, "profiled_host_ms": host2,
+                               "host_copies_per_frame": syncs2},
+         card=card)
+
+    # ---- 15. tsdf_rgbd: photometric KinectFusion (main path) -----------------
+    rgbd_cfg = projective.fit_levels(RgbdIcpConfig(), h, w)
+    colors8 = [np.clip(c * 255, 0, 255).astype(np.uint8) for c in colors.cpu().numpy()]
+    colors8_dev = [torch.from_numpy(c).to(dev) for c in colors8]
+    photo_cfg = TrackerConfig(intrinsics=intr, method="tsdf", tsdf=cfg, tsdf_color=True, tsdf_photometric=True,
+                              device="cuda")
+    warm = Tracker(photo_cfg)
+    for i in range(2):
+        warm.process(depths[i], color=colors8_dev[i])
+    photo = Tracker(photo_cfg)
+    ctx.reset_counts()
+    photo_res, photo_ms = [], []
+    for i in range(depths.shape[0]):
+        t0 = time.perf_counter()
+        photo_res.append(photo.process(depths[i], float(i), color=colors8_dev[i]))
+        photo_ms.append((time.perf_counter() - t0) * 1e3)
+    photo_launches = ctx.read_counts()
+    nf = depths.shape[0]
+    ctx.check_counts(photo_launches, "tsdf_rgbd", len(rgbd_cfg.iters) * (nf - 1), 0, 2 * (nf - 1),
+                     systems=(sum(rgbd_cfg.iters) + 1) * (nf - 1), integrates=nf, raycasts=nf - 1)
+    check(all(r.success for r in photo_res), "tsdf_rgbd: a frame failed")
+    photo_ate = ctx.ate_of(photo.trajectory, poses)
+    photo_copies, _ = ctx.trace_calls(lambda i: photo.process(depths[8 + i], color=colors8_dev[8 + i]), 2)
+    photo_syncs = photo_copies.get("cudaStreamSynchronize", 0)
+    check(photo_syncs == 1, f"tsdf_rgbd: {photo_syncs} host copies per frame ({photo_copies})")
+    emit("tsdf_rgbd", frames=nf, ate_rmse=photo_ate["rmse"], launches=photo_launches, host_copies_per_frame=photo_syncs,
+         ms_per_frame_median=statistics.median(photo_ms[1:]), ms_per_frame_max=max(photo_ms[1:]), card=card)
+
+    # ---- 16. mesh_surface: extraction on the tsdf phase's volume -------------
+    dense = per._impl.tsdf_volume
+    dense_cpu = tsdf_mod.TsdfVolume(*(None if a is None else a.cpu() for a in dense))
+    t0 = time.perf_counter()
+    mesh = mesh_mod.extract_mesh(dense, cfg, 131072)
+    cloud, normals = tsdf_mod.extract_surface_oriented(dense, cfg)
+    torch.cuda.synchronize()
+    extract_ms = (time.perf_counter() - t0) * 1e3
+    mesh_cpu = mesh_mod.extract_mesh(dense_cpu, cfg, 131072)
+    cloud_cpu, normals_cpu = tsdf_mod.extract_surface_oriented(dense_cpu, cfg)
+    tri, tri_cpu = int(mesh.mask.sum()), int(mesh_cpu.mask.sum())
+    pts, pts_cpu = int(cloud.mask.sum()), int(cloud_cpu.mask.sum())
+    check(tri == tri_cpu > 1000 and pts == pts_cpu > 1000, f"mesh_surface: counts {tri}/{tri_cpu}, {pts}/{pts_cpu}")
+    check(torch.equal(mesh.mask.cpu(), mesh_cpu.mask), "mesh_surface: triangle masks differ from the CPU run")
+    vgap = (mesh.vertices.cpu() - mesh_cpu.vertices).abs().max().item()
+    pgap = (cloud.points.cpu() - cloud_cpu.points).abs().max().item()
+    ngap = (normals.cpu() - normals_cpu).abs().max().item()
+    check(vgap <= 1e-5 and pgap <= 1e-5, f"mesh_surface: vertex gap {vgap}, point gap {pgap} > 1e-5")
+    emit("mesh_surface", triangles=tri, points=pts, vertex_gap_vs_cpu=vgap, point_gap_vs_cpu=pgap,
+         normal_gap_vs_cpu=ngap, device_ms=extract_ms, card=card)
+
+    # ---- 17. submaps: the atlas along a corridor that leaves a 96^3 volume ---
+    sub_cfg = tsdf_mod.sized_config(resolution=96, voxel_size=0.04)
+    atlas_cfg = TrackerConfig(intrinsics=intr, method="tsdf", tsdf=sub_cfg, tsdf_submap_radius=0.96, device="cuda")
+    atlas = Tracker(atlas_cfg)
+    ctx.reset_counts()
+    atlas_ms = []
+    atlas_res = []
+    for i in range(atlas_depths.shape[0]):
+        t0 = time.perf_counter()
+        atlas_res.append(atlas.process(atlas_depths[i], float(i)))
+        atlas_ms.append((time.perf_counter() - t0) * 1e3)
+    atlas_launches = ctx.read_counts()
+    impl = atlas._impl
+    sids = [sid for _, sid in impl._span_log]
+    spawns = impl.num_submaps - 1
+    reentries = len(sids) - len(set(sids))
+    check(all(r.success for r in atlas_res), "submaps: a frame failed")
+    check(spawns >= 2 and reentries >= 1, f"submaps: {spawns} spawns, {reentries} re-entries")
+    check(atlas_launches["tsdf_integrate"] > 0 and atlas_launches["tsdf_raycast"] > 0, "submaps: no dense launch")
+    atlas_ate = ctx.ate_of(impl.trajectory, atlas_poses)
+    # optimize_atlas on the same walk without re-entry: the return leg's
+    # submaps overlap the outbound ones (tests/test_submaps.py:134).
+    loop_atlas = submaps_mod.SubmapTsdfTracker(
+        intr, submaps_mod.SubmapConfig(volume=sub_cfg, spawn_radius=0.96, reactivate=False), device=dev)
+    for i in range(atlas_depths.shape[0]):
+        loop_atlas.process(atlas_depths[i], float(i))
+    pre = ctx.ate_of(loop_atlas.trajectory, atlas_poses)
+    t0 = time.perf_counter()
+    loops = submaps_mod.optimize_atlas(loop_atlas)
+    opt_ms = (time.perf_counter() - t0) * 1e3
+    post = ctx.ate_of(loop_atlas.trajectory, atlas_poses)
+    check(loops >= 1, "submaps: optimize_atlas accepted no loop edge")
+    emit("submaps", frames=len(atlas_res), volume=sub_cfg.resolution, spawn_radius=0.96, spawns=spawns,
+         reentries=reentries, span_log=impl._span_log, ate_rmse=atlas_ate["rmse"], launches=atlas_launches,
+         ms_per_frame_median=statistics.median(atlas_ms[1:]), ms_per_frame_max=max(atlas_ms[1:]),
+         optimize_atlas={"loops": loops, "ms": opt_ms, "submaps": loop_atlas.num_submaps,
+                         "ate_rmse_before": pre["rmse"], "ate_rmse_after": post["rmse"]},
+         card=card)
+
+    return {
+        "tsdf_integrate": {"max_abs_err": worst["integrate"], "ms": ik, "plain_ms": ip, "bound_ms": ib,
+                           "bound_by": ib_by},
+        "tsdf_raycast": {"max_abs_err": worst["raycast"], "ms": rk, "plain_ms": rp, "bound_ms": rb,
+                         "bound_by": rb_by, "gathers": gathers},
+    }
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -520,6 +912,7 @@ def main() -> None:
     from realsensetracker_tpu_torch.data import synthetic
     from realsensetracker_tpu_torch.geometry import camera, se3
     from realsensetracker_tpu_torch.kernels import backbone, build, downsample, gn_step, level_kernel
+    from realsensetracker_tpu_torch.kernels import tsdf as tsdf_kernels
     from realsensetracker_tpu_torch.models import get_pipeline
     from realsensetracker_tpu_torch.ops import correspond, fpfh, pyramid, voxel
     from realsensetracker_tpu_torch.ops.cloud import Cloud
@@ -575,22 +968,25 @@ def main() -> None:
             gn_step.LAUNCHES[k] = 0
         for k in backbone.LAUNCHES:
             backbone.LAUNCHES[k] = 0
+        for k in tsdf_kernels.LAUNCHES:
+            tsdf_kernels.LAUNCHES[k] = 0
 
     def read_counts():
         torch.cuda.synchronize()
         got = {"downsample_levels": downsample.LAUNCHES, "build_level_packed": level_kernel.LAUNCHES,
-               **gn_step.LAUNCHES, "backbone": sum(backbone.LAUNCHES.values())}
+               **gn_step.LAUNCHES, "backbone": sum(backbone.LAUNCHES.values()), **tsdf_kernels.LAUNCHES}
         for k, v in got.items():
             main_launches[k] += v
         return got
 
-    def check_counts(got, what, levels, gn_rounds, pyramids, systems=0, backbones=0):
+    def check_counts(got, what, levels, gn_rounds, pyramids, systems=0, backbones=0, integrates=0, raycasts=0):
         """levels: level-kernel launches; gn_rounds: association rounds;
         pyramids: downsample launches (one per pyramid or source-level set);
         systems: gn_system launches (joint RGB-D steps); backbones: backbone
-        factor + apply launches."""
+        factor + apply launches; integrates, raycasts: TSDF integrate and
+        raycast-march launches."""
         want = {"downsample_levels": pyramids, "build_level_packed": levels, "gn_round": gn_rounds,
-                "gn_system": systems, "backbone": backbones}
+                "gn_system": systems, "backbone": backbones, "tsdf_integrate": integrates, "tsdf_raycast": raycasts}
         check(got == want, f"{what}: launches {got}, expected {want}")
 
     def bound(nbytes, flops):
@@ -599,7 +995,7 @@ def main() -> None:
         return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
     # ---- 2. build the kernels, one nvcc each, together -------------------
-    sources = (downsample.SOURCE, level_kernel.SOURCE, gn_step.SOURCE, backbone.SOURCE)
+    sources = (downsample.SOURCE, level_kernel.SOURCE, gn_step.SOURCE, backbone.SOURCE, *tsdf_kernels.SOURCES)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=len(sources)) as pool:
         list(pool.map(build.build, sources))
@@ -1459,27 +1855,41 @@ def main() -> None:
         bound=bound, turns=turns, time_ms=time_ms, ate_of=ate_of, slam_intr=camera.TUM_DEFAULT,
     ))
 
+    # ---- 13-17. TSDF kernels, dense tracking, mesh, submap atlas ---------
+    dense = dense_phases(types.SimpleNamespace(
+        dev=dev, card=card, reset_counts=reset_counts, read_counts=read_counts, check_counts=check_counts,
+        bound=bound, turns=turns, time_ms=time_ms, ate_of=ate_of, twist_gap=twist_gap, trace_calls=trace_calls,
+        intr=intr,
+    ))
+
     for name, n in main_launches.items():
         check(n > 0, f"the main paths never launched {name}")
     errs = {"downsample_levels": ds_worst["abs"], "build_level_packed": max_err, "gn_round": gn_err,
-            "gn_system": sys_err, "backbone": bb["max_abs_err"]}
+            "gn_system": sys_err, "backbone": bb["max_abs_err"],
+            **{k: v["max_abs_err"] for k, v in dense.items()}}
     times = {"downsample_levels": (ds_k, ds_p), "build_level_packed": (kernel_ms, plain_ms),
              "gn_round": (gn_ms, gn_plain_ms), "gn_system": (sys_ms, sys_plain_ms),
-             "backbone": (bb["ms"], bb["plain_ms"])}
+             "backbone": (bb["ms"], bb["plain_ms"]), **{k: (v["ms"], v["plain_ms"]) for k, v in dense.items()}}
     bounds = {"downsample_levels": ds_bound, "build_level_packed": bound(level_bytes, level_flops),
-              "gn_round": gn_bound, "gn_system": sys_bound, "backbone": (bb["bound_ms"], bb["bound_by"])}
+              "gn_round": gn_bound, "gn_system": sys_bound, "backbone": (bb["bound_ms"], bb["bound_by"]),
+              **{k: (v["bound_ms"], v["bound_by"]) for k, v in dense.items()}}
     # No single PyTorch call computes any of these functions (a
     # validity-aware mean over several levels, a plane table, a round of
     # gated GNC Gauss-Newton with its 6x6 solves, a projective gather with
     # its gated GNC system, a block-LDL^T factor and solve of 6x6 blocks),
     # so library_ms is null throughout. The backbone row is its factor and
-    # one apply at n = 1000, a chain of n + 2n dependent 6x6 steps.
+    # one apply at n = 1000, a chain of n + 2n dependent 6x6 steps. No
+    # PyTorch call computes a gated TSDF running average or a ray march
+    # either; their rows are one integrate of a 640x480 frame into the
+    # default 128^3 volume and one full 640x480 raycast of it, the march's
+    # gather count beside its bound.
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": main_launches[name], "max_abs_err": errs[name],
          "ms": times[name][0], "plain_ms": times[name][1],
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1], "library_ms": None,
-         **({"dependent_steps": bb["dependent_steps"]} if name == "backbone" else {})}
+         **({"dependent_steps": bb["dependent_steps"]} if name == "backbone" else {}),
+         **({"gathers": dense[name]["gathers"]} if name == "tsdf_raycast" else {})}
         for name, (source, replaces) in KERNELS.items()
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,7 +5,8 @@ point-to-plane Gauss-Newton or by GNC point-to-point ICP or GICP on voxel
 clouds, or by joint point-to-plane + photometric Gauss-Newton on RGB-D
 frames; pairwise cloud registration by FPFH matching or robust global
 registration; SLAM (keyframe odometry, loop closure and pose-graph
-optimization) with checkpoints,
+optimization) with checkpoints; dense mapping (a TSDF volume tracked
+frame to model, KinectFusion's loop, meshes and an atlas of submaps),
 on an NVIDIA H100 by default (or, with ``device="cpu"``, on the CPU
 through the kernels' plain PyTorch versions). The JAX package ``realsensetracker_tpu``
 is the reference this port is held against by the ``tests/test_torch_*``
@@ -18,21 +19,25 @@ Layer map (each module sits at the same path as its JAX counterpart):
               neighbours, FPFH features and matching
   kernels/    hand-written CUDA kernels (sources in csrc/) + plain versions:
               the pyramid downsample, the pyramid level builder, the
-              fused Gauss-Newton step (a whole round, or the 6x6 system)
-              and the pose graph's backbone factor and apply
+              fused Gauss-Newton step (a whole round, or the 6x6 system),
+              the pose graph's backbone factor and apply, and the TSDF
+              volume's integrate and raycast march
   align/      projective point-to-plane ICP (stride / normal-space
               sampling), batched over a leading B; photometric and joint
               RGB-D registration; Kabsch, GNC-ICP, GICP and GNC-TLS robust
               global registration
   optimize/   pose-graph optimization (GN-CG, backbone preconditioner)
+  mapping/    the TSDF volume (integrate, raycast, surface extraction),
+              marching-tetrahedra meshes, the submap atlas
   loop_closure/ keyframe database: place recognition, geometric verification
   models/     the rs_align_app pipeline (align_pair) and the named pipelines
   parallel/   batched and chunked pair registration
   data/       synthetic raycast scenes (depth and RGB-D), depth-unit policy
   tracking/   frame-to-frame (with the voxel world map), frame-to-keyframe
               and frame-to-model trackers, their RGB-D frame and keyframe
-              counterparts, the SLAM tracker, tracker and SLAM
-              checkpoints, trajectory I/O and ATE/RPE
+              counterparts, the TSDF frame-to-model tracker, the SLAM
+              tracker, tracker, SLAM, TSDF and submap checkpoints,
+              trajectory I/O and ATE/RPE
   api/        Tracker facade + TrackerConfig
   device.py   the default device ("cuda") and its check
   interop.py  carries configuration and tracker state across from JAX

@@ -1,8 +1,8 @@
 """Configuration dataclasses.
 
-Port of realsensetracker_tpu/api/config.py for the ported methods
-("projective", "keyframe", "model", "icp", "gicp", "rgbd") and the pairwise
-pipelines of ``models``, plus the torch device the tracker runs on.
+Port of realsensetracker_tpu/api/config.py: every tracking method
+("projective", "keyframe", "model", "icp", "gicp", "rgbd", "tsdf") and the
+pairwise pipelines of ``models``, plus the torch device the tracker runs on.
 Defaults reproduce the reference's settings:
 
 * AlignConfig mirrors RsAlignAppSettings (rs_align_app.cpp:21-31):
@@ -22,6 +22,7 @@ from realsensetracker_tpu_torch import device as device_mod
 from realsensetracker_tpu_torch.align.projective import ProjectiveIcpConfig
 from realsensetracker_tpu_torch.align.rgbd import RgbdIcpConfig
 from realsensetracker_tpu_torch.geometry import camera
+from realsensetracker_tpu_torch.mapping.tsdf import TsdfConfig
 
 
 @dataclass
@@ -58,9 +59,17 @@ class TrackerConfig:
     """Streaming tracker settings."""
 
     intrinsics: camera.Intrinsics = camera.TUM_DEFAULT
-    method: str = "projective"  # "projective" | "keyframe" | "model" | "icp" | "gicp" | "rgbd" (ported so far)
+    method: str = "projective"  # "projective" | "keyframe" | "model" | "icp" | "gicp" | "rgbd" | "tsdf"
     projective: ProjectiveIcpConfig = ProjectiveIcpConfig()
     rgbd: RgbdIcpConfig = RgbdIcpConfig()  # method="rgbd": the joint geometric + photometric solver
+    tsdf: TsdfConfig = TsdfConfig()  # method="tsdf": volume and raycast settings
+    tsdf_color: bool = False  # method="tsdf": fuse per-voxel RGB too
+    tsdf_photometric: bool = False  # method="tsdf": joint geometric + photometric frame-to-model
+    # registration with the `rgbd` solver config; requires tsdf_color
+    tsdf_submap_radius: float = 0.0  # method="tsdf": > 0 switches to the submap atlas (mapping/submaps.py),
+    # spawning a new volume every this-many meters of camera/view-centre drift; 0 = one volume
+    tsdf_track_scale_fallback: float = 0.0  # method="tsdf" with tsdf.track_scale > 1: coverage floor below
+    # which reduced-resolution tracking falls back to full resolution; 0 = off
     align: AlignConfig = field(default_factory=AlignConfig)
     gicp: GicpConfig = field(default_factory=GicpConfig)
     min_inlier_fraction: float = 0.2

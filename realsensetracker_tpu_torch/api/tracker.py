@@ -1,11 +1,13 @@
 """Public tracking facade: frames in -> poses out.
 
-Port of realsensetracker_tpu/api/tracker.py for methods "projective"
-(with the world map when ``map_capacity > 0``), "keyframe", "model"
-(frame-to-model), "icp" and "gicp" (the cloud tracker, GNC-ICP or GICP)
-and "rgbd" (joint geometric + photometric frame-to-frame odometry, which
-takes a color or gray frame beside each depth frame). "tsdf" raises
-NotImplementedError naming the ROADMAP item that ports it.
+Port of realsensetracker_tpu/api/tracker.py for every method:
+"projective" (with the world map when ``map_capacity > 0``), "keyframe",
+"model" (frame-to-model), "icp" and "gicp" (the cloud tracker, GNC-ICP or
+GICP), "rgbd" (joint geometric + photometric frame-to-frame odometry, which
+takes a color or gray frame beside each depth frame) and "tsdf" (dense
+KinectFusion frame-to-model tracking against a TSDF volume, or the submap
+atlas with ``tsdf_submap_radius > 0``; with ``tsdf_color`` it takes an RGB
+frame beside each depth frame).
 """
 
 from __future__ import annotations
@@ -28,12 +30,6 @@ from realsensetracker_tpu_torch.tracking.keyframe import KeyframeTracker
 from realsensetracker_tpu_torch.tracking.rgbd import RgbdTracker
 from realsensetracker_tpu_torch.tracking.trajectory import Trajectory
 
-# Methods of the JAX facade and the ROADMAP queue 1 item that ports each.
-_NOT_PORTED = {
-    "tsdf": "item 10 (mapping/tsdf, tracking/tsdf_tracker)",
-}
-
-
 class Tracker:
     """Streaming depth tracker with selectable registration backend."""
 
@@ -44,10 +40,6 @@ class Tracker:
     def __init__(self, config: TrackerConfig | None = None):
         self.config = config or TrackerConfig()
         method = self.config.method
-        if method in _NOT_PORTED:
-            raise NotImplementedError(
-                f"method={method!r} is not ported yet: ROADMAP queue 1 {_NOT_PORTED[method]}"
-            )
         if method == "projective":
             self._impl = FrameToFrameTracker(
                 self.config.intrinsics,
@@ -74,6 +66,8 @@ class Tracker:
                 device=self.config.device,
                 **kw,
             )
+        elif method == "tsdf":
+            self._impl = _tsdf_impl(self.config)
         elif method == "rgbd":
             self._impl = RgbdTracker(
                 self.config.intrinsics,
@@ -89,8 +83,10 @@ class Tracker:
     def _ingest(self, depth):
         """Integer (raw unit) frames -> f32 meters by config.depth_scale,
         on the host for host frames, unless the impl declares
-        ``accepts_raw_depth`` (KeyframeTracker): then the raw frame passes
-        through and converts on the device."""
+        ``accepts_raw_depth`` (KeyframeTracker, the single-volume
+        TsdfTracker): then the raw frame passes through and converts on the
+        device. The submap atlas reads depth on the host at handovers and
+        takes meters."""
         if getattr(self._impl, "accepts_raw_depth", False):
             return depth
         if isinstance(depth, torch.Tensor):
@@ -111,15 +107,24 @@ class Tracker:
             if color is None:
                 raise ValueError("method='rgbd' requires a color/gray frame")
             return self._impl.process(depth, _as_gray(color), timestamp)
+        if self.config.method == "tsdf" and self.config.tsdf_color:
+            # Raw RGB (not luma): the volume fuses per-voxel color.
+            return self._impl.process(depth, timestamp, color=color)
         return self._impl.process(depth, timestamp)
 
-    def process_window(self, depths, timestamps=None, window: int = 8):
+    def process_window(self, depths, timestamps=None, window: int = 8, grays=None):
         """Process a sequence of frames, up to ``window`` frames per host
-        transfer (method='keyframe'). Identical results to per-frame
-        process(); one result per frame."""
+        transfer (methods 'keyframe' and 'tsdf'). Identical results to
+        per-frame process(); one result per frame. For method='tsdf' with
+        tsdf_color, ``grays`` carries the per-frame RGB images."""
+        if self.config.method == "tsdf":
+            return self._impl.process_window(
+                [self._ingest(d) for d in depths], timestamps, window=window,
+                colors=grays if self.config.tsdf_color else None,
+            )
         if self.config.method != "keyframe":
             raise ValueError(
-                f"process_window() requires method='keyframe' (got {self.config.method!r})"
+                f"process_window() requires method='keyframe' or 'tsdf' (got {self.config.method!r})"
             )
         if timestamps is None:
             timestamps = [None] * len(depths)
@@ -148,11 +153,49 @@ class Tracker:
     @property
     def world_map(self):
         """The MapAccumulator of 'projective' with map_capacity > 0 and of
-        'model'; None for the other methods."""
+        'model', the surface Cloud of 'tsdf'; None for the other methods."""
         return getattr(self._impl, "world_map", None)
+
+    def world_mesh(self, capacity: int = 131072):
+        """TriangleMesh of the dense model (method='tsdf'), else None."""
+        fn = getattr(self._impl, "world_mesh", None)
+        return fn(capacity) if fn is not None else None
+
+    @property
+    def world_map_colored(self):
+        """(Cloud, colors) of a color-fusing backend (tsdf_color), else None."""
+        return getattr(self._impl, "world_map_colored", None)
+
+    @property
+    def world_map_oriented(self):
+        """(Cloud, normals) of the dense backend (method='tsdf'), else None."""
+        return getattr(self._impl, "world_map_oriented", None)
 
     def save_trajectory(self, path: str) -> None:
         self.trajectory.save_tum(path)
+
+
+def _tsdf_impl(config: TrackerConfig):
+    """The dense backend of method='tsdf': a TsdfTracker, or the submap
+    atlas when config.tsdf_submap_radius > 0."""
+    photo_kw = {"photometric": config.rgbd} if config.tsdf_photometric else {}
+    if config.tsdf_submap_radius > 0:
+        from realsensetracker_tpu_torch.mapping.submaps import SubmapConfig, SubmapTsdfTracker
+
+        return SubmapTsdfTracker(
+            config.intrinsics,
+            SubmapConfig(volume=config.tsdf, spawn_radius=config.tsdf_submap_radius),
+            icp=config.projective, min_inlier_fraction=config.min_inlier_fraction, use_color=config.tsdf_color,
+            track_scale_fallback=config.tsdf_track_scale_fallback, device=config.device, **photo_kw,
+        )
+    from realsensetracker_tpu_torch.tracking.tsdf_tracker import TsdfTracker
+
+    return TsdfTracker(
+        config.intrinsics, volume=config.tsdf, icp=config.projective,
+        min_inlier_fraction=config.min_inlier_fraction, use_color=config.tsdf_color,
+        depth_scale=config.depth_scale, track_scale_fallback=config.tsdf_track_scale_fallback,
+        device=config.device, **photo_kw,
+    )
 
 
 _LUMA = (0.299, 0.587, 0.114)  # BT.601

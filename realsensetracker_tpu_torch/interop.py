@@ -20,6 +20,8 @@ from realsensetracker_tpu_torch.align.rgbd import RgbdIcpConfig
 from realsensetracker_tpu_torch.api.config import AlignConfig, GicpConfig, TrackerConfig
 from realsensetracker_tpu_torch.api.tracker import _CloudTracker
 from realsensetracker_tpu_torch.geometry.camera import Intrinsics
+from realsensetracker_tpu_torch.mapping.submaps import Submap, SubmapConfig, SubmapTsdfTracker, _to_host
+from realsensetracker_tpu_torch.mapping.tsdf import TsdfConfig, TsdfVolume
 from realsensetracker_tpu_torch.ops.cloud import Cloud
 from realsensetracker_tpu_torch.ops.pyramid import PyramidLevel
 from realsensetracker_tpu_torch.tracking.accumulator import MapAccumulator
@@ -29,6 +31,7 @@ from realsensetracker_tpu_torch.tracking.keyframe import KeyframeTracker
 from realsensetracker_tpu_torch.tracking.keyframe_rgbd import RgbdKeyframeTracker
 from realsensetracker_tpu_torch.tracking.rgbd import RgbdTracker
 from realsensetracker_tpu_torch.tracking.slam import SlamConfig, SlamTracker, _Keyframe
+from realsensetracker_tpu_torch.tracking.tsdf_tracker import TsdfTracker
 from realsensetracker_tpu_torch.tracking.trajectory import Trajectory
 
 
@@ -59,6 +62,13 @@ def gicp_config_from_jax(cfg) -> GicpConfig:
     return GicpConfig(**{f.name: getattr(cfg, f.name) for f in dataclasses.fields(GicpConfig)})
 
 
+def tsdf_config_from_jax(cfg) -> TsdfConfig:
+    """A JAX TsdfConfig as the port's, every field carried over."""
+    fields = {name: getattr(cfg, name) for name in TsdfConfig._fields}
+    fields["origin"] = tuple(float(o) for o in cfg.origin)
+    return TsdfConfig(**fields)
+
+
 def tracker_config_from_jax(cfg, device=device_mod.DEFAULT) -> TrackerConfig:
     """The fields of a JAX TrackerConfig that the port reads."""
     return TrackerConfig(
@@ -66,6 +76,11 @@ def tracker_config_from_jax(cfg, device=device_mod.DEFAULT) -> TrackerConfig:
         method=cfg.method,
         projective=icp_config_from_jax(cfg.projective),
         rgbd=rgbd_config_from_jax(cfg.rgbd),
+        tsdf=tsdf_config_from_jax(cfg.tsdf),
+        tsdf_color=bool(cfg.tsdf_color),
+        tsdf_photometric=bool(cfg.tsdf_photometric),
+        tsdf_submap_radius=float(cfg.tsdf_submap_radius),
+        tsdf_track_scale_fallback=float(cfg.tsdf_track_scale_fallback),
         align=align_config_from_jax(cfg.align),
         gicp=gicp_config_from_jax(cfg.gicp),
         min_inlier_fraction=float(cfg.min_inlier_fraction),
@@ -295,3 +310,95 @@ def slam_state_from_jax(jax_slam, device=device_mod.DEFAULT) -> SlamTracker:
     tracker._frame_count = int(jax_slam._frame_count)
     tracker._optimize_due = bool(jax_slam._optimize_due)
     return tracker
+
+
+def tsdf_volume_from_jax(vol, device=device_mod.DEFAULT) -> TsdfVolume:
+    """A JAX TsdfVolume (tsdf, weight and, when colored, color and
+    color_weight) -> the port's, on ``device``."""
+    return TsdfVolume(*(None if a is None else _tensor(a, device) for a in vol))
+
+
+def tsdf_state_from_jax(jax_tracker, device=device_mod.DEFAULT) -> TsdfTracker:
+    """A port TsdfTracker that continues the JAX TsdfTracker's stream: same
+    settings, volume, pose, photometric reference, fuse counter, active
+    tracking config (after a track_scale fallback), frame index and
+    trajectory."""
+    photo = jax_tracker.photometric
+    tracker = TsdfTracker(
+        intrinsics_from_jax(jax_tracker.intr),
+        volume=tsdf_config_from_jax(jax_tracker.volume),
+        icp=icp_config_from_jax(jax_tracker.icp),
+        min_inlier_fraction=float(jax_tracker.min_inlier_fraction),
+        surface_capacity=int(jax_tracker.surface_capacity),
+        use_color=bool(jax_tracker.use_color),
+        photometric=None if photo is None else rgbd_config_from_jax(photo),
+        photometric_ref=jax_tracker.photometric_ref,
+        depth_scale=float(jax_tracker.depth_scale),
+        track_scale_fallback=float(jax_tracker.track_scale_fallback),
+        fallback_patience=int(jax_tracker.fallback_patience),
+        device=device,
+    )
+    _carry_tsdf_state(jax_tracker, tracker, device)
+    return tracker
+
+
+def _carry_tsdf_state(jax_tracker, tracker: TsdfTracker, device) -> None:
+    if jax_tracker._vol is not None:
+        tracker._vol = tsdf_volume_from_jax(jax_tracker._vol, device)
+    if jax_tracker._prev_gray is not None:
+        tracker._prev_gray = _tensor(jax_tracker._prev_gray, device)
+    if jax_tracker._pose is not None:
+        tracker._pose = _tensor(jax_tracker._pose, device)
+        tracker._pose_np = np.asarray(jax_tracker._pose_np, dtype=np.float32)
+    tracker._fuse_counter = int(jax_tracker._fuse_counter)
+    tracker._track_cfg = tsdf_config_from_jax(jax_tracker._track_cfg)
+    tracker._low_cov_streak = int(jax_tracker._low_cov_streak)
+    tracker.num_track_scale_fallbacks = int(jax_tracker.num_track_scale_fallbacks)
+    tracker._index = int(jax_tracker._index)
+    tracker.trajectory = _trajectory(jax_tracker.trajectory)
+
+
+def submap_state_from_jax(jax_atlas, device=device_mod.DEFAULT) -> SubmapTsdfTracker:
+    """A port SubmapTsdfTracker that continues the JAX atlas's stream: same
+    policy, every submap (anchor, volume, frames; frozen volumes in host
+    memory when offloaded), the inner tracker's state, the span log and
+    the world trajectory."""
+    inner = jax_atlas._t
+    cfg = jax_atlas.config
+    photo = inner.photometric
+    atlas = SubmapTsdfTracker(
+        intrinsics_from_jax(jax_atlas.intr),
+        SubmapConfig(
+            volume=tsdf_config_from_jax(cfg.volume), spawn_radius=float(cfg.spawn_radius),
+            probe_depth=float(cfg.probe_depth), min_frames=int(cfg.min_frames),
+            offload_finished=bool(cfg.offload_finished), reactivate=bool(cfg.reactivate),
+            reactivate_min_inliers=float(cfg.reactivate_min_inliers), auto_slab=bool(cfg.auto_slab),
+        ),
+        icp=icp_config_from_jax(inner.icp),
+        min_inlier_fraction=float(inner.min_inlier_fraction),
+        surface_capacity=int(jax_atlas.surface_capacity),
+        use_color=bool(jax_atlas.use_color),
+        photometric=None if photo is None else rgbd_config_from_jax(photo),
+        photometric_ref=inner.photometric_ref,
+        track_scale_fallback=float(inner.track_scale_fallback),
+        device=device,
+    )
+    _carry_tsdf_state(inner, atlas._t, device)
+    dev = atlas.device
+    for k, s in enumerate(jax_atlas._subs):
+        vol = None
+        if s.volume is not None and k != jax_atlas._active_id:
+            vol = tsdf_volume_from_jax(s.volume, dev)
+            if atlas.config.offload_finished and dev.type == "cuda":
+                vol = _to_host(vol)
+            elif atlas.config.offload_finished:
+                vol = TsdfVolume(*(None if a is None else a.cpu() for a in vol))
+        atlas._subs.append(Submap(world_from_submap=np.asarray(s.world_from_submap, np.float32), volume=vol,
+                                  frames=int(s.frames)))
+    atlas._anchor = np.asarray(jax_atlas._anchor, np.float32)
+    atlas._frames_in_active = int(jax_atlas._frames_in_active)
+    atlas._active_id = int(jax_atlas._active_id)
+    atlas._span_log = [(int(a), int(b)) for a, b in jax_atlas._span_log]
+    atlas.trajectory = _trajectory(jax_atlas.trajectory)
+    atlas._pose_np = None if jax_atlas._pose_np is None else np.asarray(jax_atlas._pose_np, np.float32)
+    return atlas

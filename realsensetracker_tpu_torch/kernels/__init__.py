@@ -9,6 +9,9 @@
   6x6 reduction, damped solve and SE(3) update.
 * backbone: the pose graph's block-LDL^T backbone preconditioner, its
   factor and its apply (the port's own kernel: JAX's is plain XLA).
+* tsdf: the TSDF volume's integrate (one thread per voxel, gates read on
+  the device) and raycast march (one thread per ray), the port's own
+  kernels where JAX's are plain XLA.
 """
 
 from realsensetracker_tpu_torch.kernels.level_kernel import build_level_packed  # noqa: F401

@@ -6,7 +6,10 @@ other: the port's pyramid levels carry a leading batch of 1
 (ops/pyramid.py), which is squeezed on save and restored on load. A
 FrameToFrameTracker snapshot holds pose, frame index, trajectory, world
 model and reference pyramid; a SlamTracker snapshot adds the VO's keyframe
-state, the keyframe store, the loop edges and the counters.
+state, the keyframe store, the loop edges and the counters; a TsdfTracker
+snapshot holds the dense volume (tsdf, weight and the color planes) with
+its geometry, and a SubmapTsdfTracker snapshot every submap's anchor and
+volume with the handover span log.
 """
 
 from __future__ import annotations
@@ -18,8 +21,6 @@ from realsensetracker_tpu_torch.tracking.trajectory import Trajectory
 
 FORMAT_VERSION = 4  # v4: the resolution-fitted level count (projective.fit_levels)
 SLAM_FORMAT_VERSION = 1
-
-_ITEM_10 = "TSDF and submap checkpoints need mapping/ (ROADMAP queue 1 item 10), not ported yet"
 
 
 def _host(t) -> np.ndarray:
@@ -272,17 +273,181 @@ def load_slam(path: str, tracker) -> None:
     ]
 
 
+TSDF_FORMAT_VERSION = 1
+SUBMAP_FORMAT_VERSION = 1
+
+
+def _unwrap_tsdf(tracker):
+    """A TsdfTracker, or the api.Tracker facade around one."""
+    impl = getattr(tracker, "_impl", tracker)
+    if not hasattr(impl, "_vol"):
+        raise ValueError("not a TSDF tracker (method='tsdf')")
+    return impl
+
+
+def _check_geometry(data, cfg) -> None:
+    vs = float(data["vol_voxel_size"])
+    org = data["vol_origin"]
+    if abs(vs - cfg.voxel_size) > 1e-9 or np.abs(org - np.asarray(cfg.origin)).max() > 1e-9:
+        raise ValueError(
+            f"snapshot volume geometry (voxel {vs} m, origin {org.tolist()}) != configured "
+            f"(voxel {cfg.voxel_size} m, origin {list(cfg.origin)})"
+        )
+
+
 def save_tsdf(path: str, tracker) -> None:
-    raise NotImplementedError(_ITEM_10)
+    """Snapshot a TsdfTracker: pose, frame index, trajectory and the dense
+    volume (tsdf, weight [+ color planes]) with its geometry."""
+    tracker = _unwrap_tsdf(tracker)
+    payload = {
+        "tsdf_version": np.int64(TSDF_FORMAT_VERSION),
+        "frame_index": np.int64(tracker._index),
+        **_trajectory_payload(tracker.trajectory),
+        "vol_voxel_size": np.float64(tracker.volume.voxel_size),
+        "vol_origin": np.asarray(tracker.volume.origin, np.float64),
+    }
+    if tracker._pose is not None:
+        payload["pose"] = _host(tracker._pose)
+    vol = tracker._vol
+    if vol is not None:
+        payload["vol_tsdf"] = _host(vol.tsdf)
+        payload["vol_weight"] = _host(vol.weight)
+        if vol.color is not None:
+            payload["vol_color"] = _host(vol.color)
+            payload["vol_color_weight"] = _host(vol.color_weight)
+    np.savez_compressed(path, **payload)
 
 
 def load_tsdf(path: str, tracker) -> None:
-    raise NotImplementedError(_ITEM_10)
+    """Restore a save_tsdf snapshot (either package's) into a freshly
+    constructed TsdfTracker with the same TsdfConfig, in place, on the
+    tracker's device."""
+    from realsensetracker_tpu_torch.mapping.tsdf import TsdfVolume
+
+    tracker = _unwrap_tsdf(tracker)
+    dev = tracker.device
+    data = np.load(path, allow_pickle=False)
+    version = int(data["tsdf_version"])
+    if version != TSDF_FORMAT_VERSION:
+        raise ValueError(f"tsdf checkpoint version {version} != {TSDF_FORMAT_VERSION}")
+    saved_color = "vol_color" in data
+    if "vol_voxel_size" in data:
+        _check_geometry(data, tracker.volume)
+    if "vol_tsdf" in data:
+        v = data["vol_tsdf"].shape[-1]
+        if v != tracker.volume.resolution:
+            raise ValueError(f"snapshot volume {v}^3 != configured {tracker.volume.resolution}^3")
+        if saved_color != bool(tracker.use_color):
+            raise ValueError(
+                f"TSDF checkpoint color mismatch: snapshot {'has' if saved_color else 'lacks'} color planes but "
+                "the tracker's use_color disagrees"
+            )
+        t = lambda key: torch.as_tensor(data[key], dtype=torch.float32, device=dev)  # noqa: E731
+        tracker._vol = TsdfVolume(
+            tsdf=t("vol_tsdf"), weight=t("vol_weight"),
+            color=t("vol_color") if saved_color else None,
+            color_weight=t("vol_color_weight") if saved_color else None,
+        )
+    else:
+        tracker._vol = None
+    tracker._index = int(data["frame_index"])
+    tracker.trajectory = _trajectory(data)
+    tracker._pose = torch.as_tensor(data["pose"], dtype=torch.float32, device=dev) if "pose" in data else None
+    tracker._pose_np = np.asarray(data["pose"], np.float32) if "pose" in data else None
+
+
+def _unwrap_submaps(tracker):
+    """A SubmapTsdfTracker, or the api.Tracker facade around one."""
+    impl = getattr(tracker, "_impl", tracker)
+    if not (hasattr(impl, "_subs") and hasattr(impl, "_t")):
+        raise ValueError("not a submap TSDF tracker (method='tsdf' with a spawn radius)")
+    return impl
 
 
 def save_submaps(path: str, tracker) -> None:
-    raise NotImplementedError(_ITEM_10)
+    """Snapshot a SubmapTsdfTracker: every submap's anchor and dense planes
+    (stacked (K, V, V, V), the active one's live volume included), the
+    handover span log, the inner tracker's pose and the world trajectory."""
+    tr = _unwrap_submaps(tracker)
+    inner = tr._t
+    cfg = tr.config
+    subs = tr.submaps  # the live anchor and volume stand in for the active id
+    payload = {
+        "submap_version": np.int64(SUBMAP_FORMAT_VERSION),
+        "vol_voxel_size": np.float64(cfg.volume.voxel_size),
+        "vol_origin": np.asarray(cfg.volume.origin, np.float64),
+        "spawn_radius": np.float64(cfg.spawn_radius),
+        "frame_index": np.int64(inner._index),
+        "frames_in_active": np.int64(tr._frames_in_active),
+        "active_id": np.int64(tr._active_id),
+        "span_log": np.asarray(tr._span_log, np.int64).reshape(-1, 2),
+        **_trajectory_payload(tr.trajectory),
+    }
+    if subs:
+        payload["anchors"] = np.stack([s.world_from_submap for s in subs]).astype(np.float32)
+        # Stored frames exclude the active streak (frames_in_active is its own field).
+        payload["sub_frames"] = np.asarray([e.frames for e in tr._subs], np.int64)
+        payload["subs_tsdf"] = np.stack([_host(s.volume.tsdf) for s in subs])
+        payload["subs_weight"] = np.stack([_host(s.volume.weight) for s in subs])
+        if tr.use_color:
+            payload["subs_color"] = np.stack([_host(s.volume.color) for s in subs])
+            payload["subs_color_weight"] = np.stack([_host(s.volume.color_weight) for s in subs])
+    if inner._pose is not None:
+        payload["pose"] = _host(inner._pose)
+    np.savez_compressed(path, **payload)
 
 
 def load_submaps(path: str, tracker) -> None:
-    raise NotImplementedError(_ITEM_10)
+    """Restore a save_submaps snapshot (either package's) into a freshly
+    constructed SubmapTsdfTracker with the same volume geometry, in place:
+    the active volume on the tracker's device, the frozen ones in host
+    memory (or on the device without offload_finished)."""
+    from realsensetracker_tpu_torch.mapping.submaps import Submap, _to_device, _to_host
+    from realsensetracker_tpu_torch.mapping.tsdf import TsdfVolume
+
+    tr = _unwrap_submaps(tracker)
+    inner = tr._t
+    dev = tr.device
+    data = np.load(path, allow_pickle=False)
+    version = int(data["submap_version"])
+    if version != SUBMAP_FORMAT_VERSION:
+        raise ValueError(f"submap checkpoint version {version} != {SUBMAP_FORMAT_VERSION}")
+    cfgv = tr.config.volume
+    _check_geometry(data, cfgv)
+    saved_color = "subs_color" in data
+    if "anchors" in data and saved_color != bool(tr.use_color):
+        raise ValueError(
+            f"submap checkpoint color mismatch: snapshot {'has' if saved_color else 'lacks'} color planes but the "
+            "tracker's use_color disagrees"
+        )
+    active_id = int(data["active_id"])
+    tr._subs = []
+    if "anchors" in data:
+        if data["subs_tsdf"].shape[-1] != cfgv.resolution:
+            raise ValueError(f"snapshot volume {data['subs_tsdf'].shape[-1]}^3 != configured {cfgv.resolution}^3")
+        for i in range(data["anchors"].shape[0]):
+            t = lambda key: torch.as_tensor(np.ascontiguousarray(data[key][i]), dtype=torch.float32)  # noqa: E731
+            vol = TsdfVolume(
+                tsdf=t("subs_tsdf"), weight=t("subs_weight"),
+                color=t("subs_color") if saved_color else None,
+                color_weight=t("subs_color_weight") if saved_color else None,
+            )
+            if i == active_id or not tr.config.offload_finished:
+                vol = _to_device(vol, dev)
+            elif dev.type == "cuda":
+                vol = _to_host(vol)  # pinned, as a frozen submap is kept
+            tr._subs.append(Submap(world_from_submap=np.asarray(data["anchors"][i], np.float32), volume=vol,
+                                   frames=int(data["sub_frames"][i])))
+    tr._active_id = active_id
+    if active_id >= 0:
+        tr._anchor = tr._subs[active_id].world_from_submap
+        inner._vol = tr._subs[active_id].volume
+    else:
+        inner._vol = None
+    inner._pose = torch.as_tensor(data["pose"], dtype=torch.float32, device=dev) if "pose" in data else None
+    inner._pose_np = np.asarray(data["pose"], np.float32) if "pose" in data else None
+    inner._index = int(data["frame_index"])
+    tr._frames_in_active = int(data["frames_in_active"])
+    tr._span_log = [(int(a), int(b)) for a, b in data["span_log"]]
+    tr.trajectory = _trajectory(data)
+    tr._pose_np = np.asarray(tr.trajectory.poses[-1], np.float32) if tr.trajectory.poses else None

@@ -40,8 +40,6 @@ from realsensetracker_tpu_torch.optimize import pose_graph as pg
 from realsensetracker_tpu_torch.tracking.keyframe import KeyframeTracker
 from realsensetracker_tpu_torch.tracking.trajectory import Trajectory
 
-_ITEM_10 = "dense re-fusion needs mapping/ (TSDF, mesh), ROADMAP queue 1 item 10, not ported yet"
-
 
 def _check_prep_scale(prep_scale) -> int:
     s = int(prep_scale)
@@ -637,8 +635,56 @@ class SlamTracker:
         return self.build_map().extract_cloud()
 
     def build_dense(self, voxel_size: float = 0.04, resolution: int = 128, margin: float = 0.3):
-        raise NotImplementedError(_ITEM_10)
+        """Re-fuse the kept keyframe depths into a TSDF volume at the current
+        (post-optimization) keyframe poses: (TsdfVolume, TsdfConfig), or None
+        without keyframes. The volume is auto-sized: its origin centres the
+        world bounding box of the keyframe clouds (+ margin), and the voxel
+        edge grows above ``voxel_size`` until the resolution^3 grid covers
+        the box. Requires SlamConfig.keep_depths."""
+        from realsensetracker_tpu_torch.mapping import tsdf as tsdf_mod
+
+        self.flush_pending()
+        if not self._keyframes:
+            return None
+        if any(kf.depth is None for kf in self._keyframes):
+            raise ValueError(
+                "dense re-fusion needs the keyframe depth frames: construct the tracker with "
+                "SlamConfig(keep_depths=True)"
+            )
+        mins, maxs = [], []
+        for kf in self._keyframes:
+            pts = kf.cloud.points.cpu().numpy()[kf.cloud.mask.cpu().numpy()]
+            if not len(pts):
+                continue
+            pose = np.asarray(kf.pose, np.float64)
+            w = pts.astype(np.float64) @ pose[:3, :3].T + pose[:3, 3]
+            mins.append(w.min(axis=0))
+            maxs.append(w.max(axis=0))
+        if not mins:
+            return None
+        lo = np.min(mins, axis=0) - margin
+        hi = np.max(maxs, axis=0) + margin
+        vs = max(float(voxel_size), float((hi - lo).max()) / resolution)
+        center = (lo + hi) / 2
+        half = resolution * vs / 2
+        cfg = tsdf_mod.TsdfConfig(resolution=resolution, voxel_size=vs,
+                                  origin=tuple(float(c - half) for c in center), trunc=max(3.0 * vs, 0.1))
+        vol = tsdf_mod.init_volume(cfg, device=self.device)
+        for kf in self._keyframes:
+            depth = torch.as_tensor(np.asarray(kf.depth, np.float32), device=self.device)
+            pose = torch.as_tensor(np.asarray(kf.pose, np.float32), device=self.device)
+            tsdf_mod.integrate(vol, depth, pose, self.config.intrinsics, cfg)
+        return vol, cfg
 
     def world_mesh(self, capacity: int = 131072, voxel_size: float = 0.04, resolution: int = 128,
                    margin: float = 0.3):
-        raise NotImplementedError(_ITEM_10)
+        """Loop-consistent dense surface as a TriangleMesh (build_dense +
+        marching tetrahedra); None without keyframes, raises without
+        keep_depths."""
+        from realsensetracker_tpu_torch.mapping.mesh import extract_mesh
+
+        out = self.build_dense(voxel_size=voxel_size, resolution=resolution, margin=margin)
+        if out is None:
+            return None
+        vol, cfg = out
+        return extract_mesh(vol, cfg, capacity)

@@ -27,6 +27,15 @@ orders equal ones), covariances to 1e-6, poses to 1e-4 in twist, the
 k-core exactly. FPFH is held row by row: a pair whose |n1.d| and |n2.d|
 agree to an ulp (neighbours with the same k-NN set) takes the origin
 switch by rounding (tests/test_torch_fpfh.py), so a few rows may part.
+
+The dense kernels (the port's own: csrc/tsdf_integrate.cu and
+csrc/tsdf_raycast.cu) are held to their plain torch versions at V = 48 and
+128, full pass, slab window and colored: tsdf and weight within 1e-6 (they
+compute the same operations in the same order, so bit for bit is
+expected) with the update masks identical, a closed gate leaving the volume
+bit-identical; the raycast with the hit masks identical and depth within
+1e-5 where both hit, full and coarse-to-fine; Tracker(method="tsdf") on
+the card within 1e-4 of the CPU.
 """
 
 import numpy as np
@@ -38,6 +47,8 @@ from realsensetracker_tpu_torch.api import Tracker, TrackerConfig
 from realsensetracker_tpu_torch.data import synthetic
 from realsensetracker_tpu_torch.geometry import camera, se3
 from realsensetracker_tpu_torch.kernels import backbone, downsample, gn_step, level_kernel
+from realsensetracker_tpu_torch.kernels import tsdf as tsdf_kernels
+from realsensetracker_tpu_torch.mapping import tsdf as tsdf_mod
 from realsensetracker_tpu_torch.ops import pyramid
 from realsensetracker_tpu_torch.parallel import batched
 from realsensetracker_tpu_torch.tracking.keyframe import KeyframeTracker
@@ -678,3 +689,111 @@ def test_optimize_pose_graph_on_cuda_matches_cpu(cuda):
     assert abs(c_gpu / c_cpu - 1) < 1e-4
     err_before = np.abs(est[:, :3, 3] - gt[:, :3, 3]).max()
     assert np.abs(p_gpu.numpy()[:, :3, 3] - gt[:, :3, 3]).max() < 0.5 * err_before
+
+
+# ---- dense mapping: the TSDF integrate and raycast kernels -------------------
+
+
+def _tsdf_setup(v, device, n=4, color=False, slab=0):
+    """(cfg, intr, depths (n, 120, 160), colors or None, poses) of a small
+    walk through the default scene, for a V^3 volume over it."""
+    cfg = tsdf_mod.sized_config(resolution=v, voxel_size=4.8 / v)._replace(integrate_slab=slab)
+    if slab:
+        cfg = cfg._replace(max_depth=2.0)  # the update support then fits the 3V/4 window
+    intr = _intr(120, 160)
+    sc = synthetic.default_scene(seed=3, device=device)
+    poses = synthetic.poses_from_twists(0.02 * torch.randn((n - 1, 6), generator=torch.Generator().manual_seed(4))
+                                        ).to(device)
+    frames = [synthetic.render_rgbd(intr, T, sc) for T in poses]
+    depths = torch.stack([d for d, _ in frames])
+    colors = torch.stack([c for _, c in frames]).contiguous() if color else None
+    return cfg, intr, depths, colors, poses
+
+
+def _fuse_both(cfg, intr, depths, colors, poses, device):
+    """The same frames fused by the kernel and by the plain version."""
+    vk = tsdf_mod.init_volume(cfg, with_color=colors is not None, device=device)
+    vp = tsdf_mod.clone_volume(vk)
+    fits_seen = 0
+    for i in range(depths.shape[0]):
+        c = None if colors is None else colors[i]
+        pcw = se3.inverse(poses[i])
+        start = fits = None
+        if 0 < cfg.integrate_slab < cfg.resolution:
+            start, fits = tsdf_mod.slab_window(depths[i], poses[i], intr, cfg)
+            fits_seen += int(fits)
+        before = tsdf_kernels.LAUNCHES["tsdf_integrate"]
+        tsdf_kernels.fuse_block(vk, depths[i], c, pcw, intr, cfg, start=start, fits=fits)
+        assert tsdf_kernels.LAUNCHES["tsdf_integrate"] == before + 1
+        tsdf_kernels.fuse_block_reference(vp, depths[i], c, pcw, intr, cfg, start=start, fits=fits)
+    assert fits_seen > 0 or not 0 < cfg.integrate_slab < cfg.resolution  # the window engaged
+    return vk, vp
+
+
+@pytest.mark.parametrize("mode", ["full", "slab", "color"])
+@pytest.mark.parametrize("v", [48, 128])
+def test_tsdf_integrate_kernel_matches_reference(cuda, v, mode):
+    cfg, intr, depths, colors, poses = _tsdf_setup(v, cuda, color=mode == "color",
+                                                   slab=3 * v // 4 if mode == "slab" else 0)
+    vk, vp = _fuse_both(cfg, intr, depths, colors, poses, cuda)
+    torch.cuda.synchronize()
+    assert torch.equal(vk.weight > 0, vp.weight > 0)
+    assert int((vk.weight > 0).sum()) > 200
+    for a, b in zip(vk, vp):
+        if a is not None:
+            assert (a - b).abs().max().item() <= 1e-6
+
+
+@pytest.mark.parametrize("v", [48, 128])
+def test_tsdf_integrate_closed_gate_leaves_the_volume(cuda, v):
+    cfg, intr, depths, colors, poses = _tsdf_setup(v, cuda, color=True)
+    vol, _ = _fuse_both(cfg, intr, depths[:2], colors[:2], poses[:2], cuda)
+    before = tsdf_mod.clone_volume(vol)
+    shut = torch.zeros((), dtype=torch.bool, device=cuda)
+    tsdf_mod.integrate(vol, depths[2], poses[2], intr, cfg, color=colors[2], gate=shut)
+    torch.cuda.synchronize()
+    for a, b in zip(vol, before):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("coarse", [1, 4])
+@pytest.mark.parametrize("v", [48, 128])
+def test_tsdf_raycast_kernel_matches_reference(cuda, v, coarse):
+    cfg, intr, depths, _, poses = _tsdf_setup(v, cuda)
+    vol, _ = _fuse_both(cfg, intr, depths, None, poses, cuda)
+    field = tsdf_mod.march_field(vol)
+    T = poses[-1]
+    if coarse == 1:
+        args = (field, T, intr, cfg, cfg.num_steps)
+        kw = dict(subvoxel_iters=cfg.subvoxel_iters)
+        got, ref = tsdf_kernels.march(*args, **kw), tsdf_kernels.march_reference(*args, **kw)
+    else:
+        ci = tsdf_mod.coarse_intrinsics(intr, coarse)
+        dc, dc_ref = (fn(field, T, ci, cfg, cfg.num_steps) for fn in (tsdf_kernels.march, tsdf_kernels.march_reference))
+        assert torch.equal(dc > 0, dc_ref > 0)
+        z0, seeded = tsdf_mod.coarse_seeds(dc_ref, coarse, cfg)
+        kw = dict(z_start=z0, gate=seeded, subvoxel_iters=cfg.subvoxel_iters)
+        got = tsdf_kernels.march(field, T, intr, cfg, cfg.refine_steps, **kw)
+        ref = tsdf_kernels.march_reference(field, T, intr, cfg, cfg.refine_steps, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got > 0, ref > 0)
+    assert int((got > 0).sum()) > 0.3 * got.numel()
+    hit = got > 0
+    assert (got[hit] - ref[hit]).abs().max().item() <= 1e-5
+
+
+def test_tsdf_tracker_on_cuda_matches_cpu(cuda):
+    intr = _intr(120, 160)
+    depths, _ = synthetic.render_trajectory(intr, 6, seed=2, step_scale=0.01)
+    cfg = tsdf_mod.sized_config(resolution=64, voxel_size=0.08)
+    poses = []
+    for device in ("cpu", cuda):
+        tracker = Tracker(TrackerConfig(intrinsics=intr, method="tsdf", tsdf=cfg, device=str(device)))
+        before = dict(tsdf_kernels.LAUNCHES)
+        res = [tracker.process(d) for d in depths]
+        assert all(r.success for r in res)
+        if device != "cpu":
+            assert tsdf_kernels.LAUNCHES == {"tsdf_integrate": before["tsdf_integrate"] + 6,
+                                             "tsdf_raycast": before["tsdf_raycast"] + 5}
+        poses.append(np.stack([r.pose for r in res]))
+    np.testing.assert_allclose(poses[1], poses[0], atol=1e-4)

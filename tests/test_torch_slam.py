@@ -200,7 +200,9 @@ def test_build_map_and_world_map(port_runs):
     m = tracker.build_map(voxel_size=0.1, capacity=1 << 14)
     assert int(m.count()) > 100
     assert int(tracker.world_map.mask.sum()) >= int(m.count())
-    with pytest.raises(NotImplementedError, match="item 10"):
+    # Dense re-fusion is ported (tests/test_torch_tsdf_checkpoint.py); it
+    # needs the keyframe depths, which this tracker does not keep.
+    with pytest.raises(ValueError, match="keep_depths"):
         tracker.build_dense()
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(ValueError, match="keep_depths"):
         tracker.world_mesh()

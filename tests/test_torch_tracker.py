@@ -147,14 +147,10 @@ def test_failure_holds_pose_and_reference(stream):
 
 @pytest.mark.parametrize("method", ["rgbd", "tsdf"])
 def test_unported_methods_name_their_roadmap_item(method):
-    """A method the port lacks raises, naming its ROADMAP item; one ported
-    since ("rgbd", queue 1 item 8) builds and is no longer listed."""
-    if method == "rgbd":
-        assert method not in tracker_mod._NOT_PORTED
-        assert Tracker(TrackerConfig(intrinsics=INTR, method=method, device="cpu")).config.method == method
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
-        Tracker(TrackerConfig(intrinsics=INTR, method=method, device="cpu"))
+    """Every method of the JAX facade is ported ("rgbd" in queue 1 item 8,
+    "tsdf" in item 10): none is listed as missing, and each builds."""
+    assert not hasattr(tracker_mod, "_NOT_PORTED")
+    assert Tracker(TrackerConfig(intrinsics=INTR, method=method, device="cpu")).config.method == method
 
 
 def test_unknown_method_raises():

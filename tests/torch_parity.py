@@ -68,3 +68,55 @@ def pose(twist) -> np.ndarray:
 def apply_pose(T, pts) -> np.ndarray:
     """f32 points (N, 3) moved by a (4, 4) pose, the product in f64."""
     return (pts.astype(np.float64) @ T[:3, :3].T.astype(np.float64) + T[:3, 3]).astype(np.float32)
+
+
+# --- dense mapping -------------------------------------------------------------
+
+# The submap tests' volume (tests/test_submaps.py:30-32): a 2.4 m cube of 5 cm
+# voxels, 48^3, with the 80x60 camera of tests/test_tsdf.py:17-20.
+DENSE_VOL = dict(resolution=48, voxel_size=0.05, origin=(-1.2, -1.2, -0.2625), trunc=0.15, max_range=3.0,
+                 max_depth=4.0)
+DENSE_ICP = dict(iters=(3, 3), inner_iters=2, samples=768, min_samples=192)
+
+
+def dense_configs(**overrides):
+    """(JAX TsdfConfig, port TsdfConfig) of DENSE_VOL with ``overrides``."""
+    from realsensetracker_tpu.mapping import tsdf as jtsdf
+    from realsensetracker_tpu_torch.mapping import tsdf as ptsdf
+
+    kw = {**DENSE_VOL, **overrides}
+    return jtsdf.TsdfConfig(**kw), ptsdf.TsdfConfig(**kw)
+
+
+def walk(n, step=(0.01, -0.005, 0.015, 0.004, 0.006, -0.003)):
+    """(n, 4, 4) f32 poses exp(i * step): a smooth short walk."""
+    return np.stack([pose([i * s for s in step]) for i in range(n)])
+
+
+def render_rgbd(intr, poses, seed=0):
+    """(depths (F, H, W), colors (F, H, W, 3)) f32 of scene(seed) with its
+    default albedo."""
+    sc = scene(seed)
+    frames = [synthetic.render_rgbd(intr, torch.as_tensor(np.asarray(T, np.float32)), sc) for T in poses]
+    return np.stack([d.numpy() for d, _ in frames]), np.stack([c.numpy() for _, c in frames])
+
+
+def volumes_close(jvol, pvol, atol=1e-6):
+    """Assert a JAX and a port TsdfVolume agree: the observed masks equal,
+    weights equal, tsdf (and color planes) within atol."""
+    np.testing.assert_array_equal(np.asarray(jvol.weight) > 0, pvol.weight.numpy() > 0)
+    np.testing.assert_array_equal(np.asarray(jvol.weight), pvol.weight.numpy())
+    np.testing.assert_allclose(pvol.tsdf.numpy(), np.asarray(jvol.tsdf), rtol=0, atol=atol)
+    if jvol.color is not None:
+        np.testing.assert_array_equal(np.asarray(jvol.color_weight), pvol.color_weight.numpy())
+        np.testing.assert_allclose(pvol.color.numpy(), np.asarray(jvol.color), rtol=0, atol=atol)
+
+
+def tracked_volumes_close(jvol, pvol, atol=1e-4, max_parted=1e-4):
+    """Assert the volumes of two tracker runs agree: poses that part by
+    ~1e-7 (the ICP's sums) move a voxel across the update predicate or onto
+    the next pixel now and then, so at most ``max_parted`` of the voxels may
+    differ in weight or by more than ``atol`` in tsdf."""
+    jw, pw = np.asarray(jvol.weight), pvol.weight.numpy()
+    parted = (jw != pw) | (np.abs(pvol.tsdf.numpy() - np.asarray(jvol.tsdf)) > atol)
+    assert parted.mean() <= max_parted, f"{int(parted.sum())} voxels parted"
