@@ -165,10 +165,36 @@ need for JAX. Phases, one JSON line each:
                    >= 2 spawns and >= 1 re-entry; optimize_atlas of the
                    same walk without re-entry accepts >= 1 loop edge; ms
                    per frame and per optimize_atlas.
+  18. serve_batched -- 8 producer threads x 30 u16 640x480 frames (each
+                   session its own seeded walk, 1/5000 m) through a
+                   TrackingService on 127.0.0.1 over BatchedExecutor
+                   (capacity 8): every frame tracks, ATE rmse < 0.02 m per
+                   session, no dispatch error, sum(iters) gn_round
+                   launches per dispatch, each session equal to itself
+                   served alone (1e-6 twist) and its first 3 frames to the
+                   CPU executor (1e-4), one device-to-host copy per
+                   dispatch (profiler trace); frames/s, latency p50/p90,
+                   slots and device kernels per dispatch, busy share, and
+                   8 serialized Tracker(method="projective") sessions
+                   behind the plain service in turns with it.
+  19. serve_window -- 4 sessions posting /track_window (window 8): equal to
+                   /track per frame, one copy per dispatch.
+  20. serve_rgbd -- 4 RGB-D sessions x 10 frames, u8 color, capacity 4:
+                   sum(iters) + 1 gn_system launches per dispatch, every
+                   frame tracks, 3 frames against the CPU executor.
+  21. serve_tsdf -- 4 dense sessions (128^3 slots) over phase 7's walk:
+                   ATE, 1e-4 of TsdfTracker, S raycasts and S integrates
+                   per dispatch; a 0.05 m submap radius reseeds.
+  22. serve_plain -- the unbatched service with Tracker(method="keyframe")
+                   equal to the tracker called directly.
+  23. rs_serve  -- python -m realsensetracker_tpu_torch.cli.rs_serve
+                   --batched --max-frames 4 as a subprocess: exit 0,
+                   "served 4 frames".
 
 Each main path (register, register_normal_space, tracker, keyframe,
 world_map, model, icp, gicp, align_pair, rgbd, pose_graph, slam, tsdf,
-tsdf_rgbd, submaps) runs with every launch count set
+tsdf_rgbd, submaps, serve_batched, serve_window, serve_rgbd, serve_tsdf)
+runs with every launch count set
 to 0 just before it and read just after; a kernel the path runs must have
 launched there, and the cloud paths (model, icp, gicp, align_pair), which
 run no kernel of their own, must have launched none. Then the kernels line, with each kernel's bound (the
@@ -185,6 +211,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -897,6 +924,390 @@ def dense_phases(ctx) -> dict:
         "tsdf_raycast": {"max_abs_err": worst["raycast"], "ms": rk, "plain_ms": rp, "bound_ms": rb,
                          "bound_by": rb_by, "gathers": gathers},
     }
+
+
+def serving_phases(ctx) -> None:
+    """Phases 18-23: the serving paths at 640x480 (camera.TUM_FR1, default
+    ProjectiveIcpConfig, u16 bodies at 1/5000 m) through a real
+    TrackingService on 127.0.0.1: the batched executor at capacity 8
+    (BASELINE config 5) against 8 serialized trackers, /track_window, RGB-D
+    and dense slots, the plain service, and rs_serve as a subprocess. ctx
+    carries main()'s helpers (dev, card, intr, reset_counts, read_counts,
+    check_counts, ate_of, twist_gap)."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from realsensetracker_tpu_torch.align import projective
+    from realsensetracker_tpu_torch.align.rgbd import RgbdIcpConfig
+    from realsensetracker_tpu_torch.api import Tracker, TrackerConfig
+    from realsensetracker_tpu_torch.api.batching import BatchedExecutor, BatchingConfig
+    from realsensetracker_tpu_torch.api.service import TrackingService, get_json, post_frame, post_window
+    from realsensetracker_tpu_torch.data import synthetic
+    from realsensetracker_tpu_torch.mapping import tsdf as tsdf_mod
+    from realsensetracker_tpu_torch.tracking.trajectory import Trajectory
+    from realsensetracker_tpu_torch.tracking.tsdf_tracker import TsdfTracker
+
+    dev, card, intr = ctx.dev, ctx.card, ctx.intr
+    h, w = intr.height, intr.width
+    scale = 1.0 / 5000.0
+    timeout = 120.0  # every client call
+    cfg = projective.fit_levels(projective.ProjectiveIcpConfig(), h, w)
+    levels, rounds = len(cfg.iters), sum(cfg.iters)
+
+    def u16(d):
+        return np.clip(d.cpu().numpy() * 5000.0 + 0.5, 0, 65535).astype(np.uint16)
+
+    def batching(**kw):
+        kw.setdefault("capacity", 8)
+        return BatchingConfig(intrinsics=intr, depth_scale=scale, request_timeout_s=300.0, **kw)
+
+    def drive(url, frames, window=None):
+        """Each session's producer thread posts its frames in order (one
+        /track per frame, or /track_window batches of ``window``). Returns
+        (records per session, request latencies ms, wall seconds)."""
+        n = len(frames)
+        recs, lat, errors = [[] for _ in range(n)], [[] for _ in range(n)], []
+
+        def worker(i):
+            try:
+                fr = frames[i]
+                step = window or 1
+                for s in range(0, len(fr), step):
+                    t0 = time.perf_counter()
+                    if window:
+                        out = post_window(url, fr[s:s + step], ts=np.arange(s, s + step, dtype=np.float64),
+                                          session=f"s{i}", window=window, timeout=timeout)
+                        recs[i] += out["frames"]
+                    else:
+                        recs[i].append(post_frame(url, fr[s], ts=float(s), session=f"s{i}", timeout=timeout))
+                    lat[i].append((time.perf_counter() - t0) * 1e3)
+            except Exception as e:  # reported below
+                errors.append(f"session {i}: {e!r}")
+
+        threads = [threading.Thread(target=worker, args=(i,)) for i in range(n)]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        wall = time.perf_counter() - t0
+        check(not any(th.is_alive() for th in threads), "serve: a producer thread hung")
+        check(not errors, f"serve: {errors}")
+        return recs, [x for xs in lat for x in xs], wall
+
+    def poses_of(records):
+        return [np.asarray(r["pose"], np.float32) for r in records]
+
+    def ate(records, truth):
+        traj = Trajectory()
+        for i, p in enumerate(poses_of(records)):
+            traj.append(float(i), p)
+        return ctx.ate_of(traj, truth)["rmse"]
+
+    def traced(run):
+        """(device kernels, device-to-host copies, host syncs, busy share of
+        the host time) of run(), from a profiler trace; the dispatcher
+        thread's device work is traced by CUPTI whatever thread issued it."""
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        events = prof.events()
+        device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+        kernels = [e for e in device if not e.name.startswith(("Memcpy", "Memset"))]
+        dtoh = sum("DtoH" in e.name for e in device)
+        syncs = sum(e.name == "cudaStreamSynchronize" for e in events)
+        busy, end = 0.0, float("-inf")
+        for a, b in sorted((e.time_range.start, e.time_range.end) for e in device):
+            busy += max(0.0, b - max(a, end))
+            end = max(end, b)
+        return len(kernels), dtoh, syncs, busy / wall_us
+
+    def pct(xs, q):
+        xs = sorted(xs)
+        return xs[min(len(xs) - 1, int(q * len(xs)))]
+
+    # ---- 18. serve_batched: 8 producers x 30 frames, capacity 8 (main path) --
+    n_sessions, n_frames = 8, 30
+    streams_d, truths = [], []
+    for i in range(n_sessions):
+        d, p = synthetic.render_trajectory(intr, n_frames, scene=synthetic.default_scene(seed=100 + i, device=dev),
+                                           seed=i)
+        streams_d.append(u16(d))
+        truths.append(p)
+    warm_ex = BatchedExecutor(batching())  # library initialisation, outside every count and time
+    try:
+        warm = warm_ex.make_session_tracker()
+        for f in range(3):
+            warm.process(streams_d[0][f])
+    finally:
+        warm_ex.close()
+
+    def serve(make_service, frames, window=None):
+        svc, ex = make_service()
+        try:
+            out = drive(f"http://127.0.0.1:{svc.port}", frames, window)
+            return out + ((ex.stats() if ex else None),)
+        finally:
+            svc.close()
+            if ex is not None:
+                ex.close()
+
+    def batched_service(**kw):
+        ex = BatchedExecutor(batching(**kw))
+        return TrackingService(ex.make_session_tracker, extra_status=ex.stats, depth_scale=scale), ex
+
+    def plain_service():
+        make = lambda: Tracker(TrackerConfig(intrinsics=intr, method="projective", depth_scale=scale,  # noqa: E731
+                                             device="cuda"))
+        return TrackingService(make, depth_scale=scale), None
+
+    ctx.reset_counts()
+    recs, lat, wall, st = serve(batched_service, streams_d)
+    got = ctx.read_counts()
+    d_n = st["dispatches"]
+    # The slot state's blank pyramid (built at the first dispatch) is one
+    # more pyramid than the dispatches.
+    ctx.check_counts(got, "serve_batched", levels * (d_n + 1), rounds * d_n, d_n + 1)
+    check(st["errors"] == 0 and st["frames"] == n_sessions * n_frames, f"serve_batched: executor stats {st}")
+    check(all(r["success"] for rs in recs for r in rs), "serve_batched: a frame failed")
+    ates = [ate(recs[i], truths[i]) for i in range(n_sessions)]
+    check(max(ates) < ATE_BAR, f"serve_batched: ATE rmse {ates}")
+    # Each session alone, through the same executor configuration: batching
+    # must not change what a session computes.
+    # solo_gap is the twist of a^-1 b, which reads ~3e-8 for equal f32
+    # poses; solo_diff is the largest entry difference, exact up to the
+    # service's 9-decimal JSON rounding of the batched poses.
+    solo_gap, solo_diff = 0.0, 0.0
+    solo_ex = BatchedExecutor(batching())
+    try:
+        for i in range(n_sessions):
+            t_ = solo_ex.make_session_tracker()
+            alone = [t_.process(streams_d[i][f], float(f)).pose for f in range(n_frames)]
+            t_.release()
+            solo_gap = max(solo_gap, ctx.twist_gap(alone, poses_of(recs[i])))
+            solo_diff = max(solo_diff, float(np.abs(np.stack(alone) - np.stack(poses_of(recs[i]))).max()))
+    finally:
+        solo_ex.close()
+    check(solo_gap <= 1e-6, f"serve_batched: a session served alone parts by {solo_gap} > 1e-6")
+    # The first 3 rounds against the same executor on the CPU.
+    cpu_ex = BatchedExecutor(batching(device="cpu", linger_ms=200.0))
+    try:
+        cpu_tr = [cpu_ex.make_session_tracker() for _ in range(n_sessions)]
+        cpu_poses = [None] * n_sessions
+
+        def cpu_worker(i):
+            cpu_poses[i] = [cpu_tr[i].process(streams_d[i][f], float(f)).pose for f in range(3)]
+
+        threads = [threading.Thread(target=cpu_worker, args=(i,)) for i in range(n_sessions)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        check(all(p is not None for p in cpu_poses), "serve_batched: the CPU executor did not finish")
+    finally:
+        cpu_ex.close()
+    vs_cpu = max(ctx.twist_gap(cpu_poses[i], poses_of(recs[i])[:3]) for i in range(n_sessions))
+    check(vs_cpu <= TWIST_BAR_CPU, f"serve_batched: card vs CPU twist {vs_cpu} > {TWIST_BAR_CPU}")
+    # Device kernels, copies and busy share of two rounds of the 8 sessions.
+    prof_ex = BatchedExecutor(batching(linger_ms=50.0))
+    prof_svc = TrackingService(prof_ex.make_session_tracker, extra_status=prof_ex.stats, depth_scale=scale)
+    try:
+        prof_url = f"http://127.0.0.1:{prof_svc.port}"
+        drive(prof_url, [s[:2] for s in streams_d])  # seeds every slot
+        before = prof_ex.stats()["dispatches"]
+        kern, dtoh, syncs, busy = traced(lambda: drive(prof_url, [s[2:4] for s in streams_d]))
+        prof_d = prof_ex.stats()["dispatches"] - before
+    finally:
+        prof_svc.close()
+        prof_ex.close()
+    check(dtoh == prof_d, f"serve_batched: {dtoh} device-to-host copies in {prof_d} dispatches")
+    # The same frames through 8 serialized Tracker(method="projective")
+    # sessions behind the plain service, in turns with the batched run.
+    turns_ = []
+    for make in (plain_service, batched_service, batched_service, plain_service):
+        _, lat_, wall_, _ = serve(make, streams_d)
+        turns_.append({"mode": "batched" if make is batched_service else "plain",
+                       "frames_per_s": n_sessions * n_frames / wall_, "p50_ms": pct(lat_, 0.5),
+                       "p90_ms": pct(lat_, 0.9)})
+    emit("serve_batched", sessions=n_sessions, frames=n_frames, capacity=8, frames_per_s=n_sessions * n_frames / wall,
+         latency_ms={"p50": pct(lat, 0.5), "p90": pct(lat, 0.9), "max": max(lat)}, dispatches=d_n,
+         mean_slots_per_dispatch=st["mean_batch"], max_slots_per_dispatch=st["max_batch"], launches=got,
+         gn_round_per_dispatch=got["gn_round"] / d_n, ate_rmse=ates, solo_twist_gap=solo_gap, solo_pose_max_abs_diff=solo_diff,
+         twist_vs_cpu_3=vs_cpu,
+         profiled={"dispatches": prof_d, "device_kernels_per_dispatch": kern / max(prof_d, 1),
+                   "dtoh_per_dispatch": dtoh / max(prof_d, 1), "syncs": syncs, "busy_share": busy},
+         turns=turns_, card=card)
+
+    # ---- 19. serve_window: 4 sessions, /track_window with window=8 ---------
+    win_frames = [s[:16] for s in streams_d[:4]]
+    ctx.reset_counts()
+    wrecs, wlat, wwall, wst = serve(lambda: batched_service(capacity=8, window=8), win_frames, window=8)
+    wgot = ctx.read_counts()
+    wd = wst["dispatches"]
+    ctx.check_counts(wgot, "serve_window", levels * (8 * wd + 1), rounds * 8 * wd, 8 * wd + 1)
+    check(wst["errors"] == 0, f"serve_window: executor stats {wst}")
+    win_gap = max(float(np.abs(np.stack(poses_of(wrecs[i])) - np.stack(poses_of(recs[i][:16]))).max())
+                  for i in range(4))
+    check(win_gap <= 1e-6, f"serve_window: /track_window parts from /track by {win_gap}")
+    wex = BatchedExecutor(batching(window=8, linger_ms=50.0))
+    wsvc = TrackingService(wex.make_session_tracker, extra_status=wex.stats, depth_scale=scale)
+    try:
+        wurl = f"http://127.0.0.1:{wsvc.port}"
+        drive(wurl, [s[:8] for s in win_frames], window=8)
+        before = wex.stats()["dispatches"]
+        wkern, wdtoh, _, wbusy = traced(lambda: drive(wurl, [s[8:16] for s in win_frames], window=8))
+        wprof_d = wex.stats()["dispatches"] - before
+    finally:
+        wsvc.close()
+        wex.close()
+    check(wdtoh == wprof_d, f"serve_window: {wdtoh} device-to-host copies in {wprof_d} dispatches")
+    emit("serve_window", sessions=4, frames=16, window=8, dispatches=wd, mean_slots_per_dispatch=wst["mean_batch"],
+         frames_per_s=4 * 16 / wwall, latency_ms={"p50": pct(wlat, 0.5), "p90": pct(wlat, 0.9)}, launches=wgot,
+         pose_gap_vs_track=win_gap, profiled={"dispatches": wprof_d, "dtoh_per_dispatch": wdtoh / max(wprof_d, 1),
+                                              "device_kernels_per_dispatch": wkern / max(wprof_d, 1),
+                                              "busy_share": wbusy}, card=card)
+
+    # ---- 20. serve_rgbd: 4 sessions x 10 RGB-D frames, u8 color ------------
+    rgbd_cfg = projective.fit_levels(RgbdIcpConfig(), h, w)
+    r_levels, r_steps = len(rgbd_cfg.iters), sum(rgbd_cfg.iters) + 1
+    n_rgbd = 10
+    rgbd_frames, rgbd_truth = [], []
+    for i in range(4):
+        scene_i = synthetic.default_scene(seed=200 + i, device=dev)
+        d, c, p = synthetic.render_trajectory_rgbd(intr, n_rgbd, scene=scene_i, seed=i)
+        rgbd_frames.append((u16(d), np.clip(c.cpu().numpy() * 255, 0, 255).astype(np.uint8)))
+        rgbd_truth.append(p)
+
+    def drive_rgbd(url, n):
+        out, errors = [[] for _ in range(4)], []
+
+        def worker(i):
+            try:
+                dd, cc = rgbd_frames[i]
+                out[i] = [post_frame(url, dd[f], ts=float(f), color=cc[f], session=f"r{i}", timeout=timeout)
+                          for f in range(n)]
+            except Exception as e:  # reported below
+                errors.append(f"session {i}: {e!r}")
+
+        threads = [threading.Thread(target=worker, args=(i,)) for i in range(4)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        check(not errors and not any(th.is_alive() for th in threads), f"serve_rgbd: {errors}")
+        return out
+
+    def rgbd_run(device, n):
+        ex = BatchedExecutor(batching(capacity=4, rgbd=True, device=device, linger_ms=100.0))
+        svc = TrackingService(ex.make_session_tracker, extra_status=ex.stats, depth_scale=scale)
+        try:
+            t0 = time.perf_counter()
+            out = drive_rgbd(f"http://127.0.0.1:{svc.port}", n)
+            return out, ex.stats(), time.perf_counter() - t0
+        finally:
+            svc.close()
+            ex.close()
+
+    ctx.reset_counts()
+    rrecs, rst, rwall = rgbd_run("cuda", n_rgbd)
+    rgot = ctx.read_counts()
+    rd = rst["dispatches"]
+    ctx.check_counts(rgot, "serve_rgbd", r_levels * (rd + 1), 0, 2 * rd + 1, systems=r_steps * rd)
+    check(rst["errors"] == 0 and all(r["success"] for rs in rrecs for r in rs), f"serve_rgbd: {rst}")
+    rates = [ate(rrecs[i], rgbd_truth[i]) for i in range(4)]
+    rcpu, _, _ = rgbd_run("cpu", 3)
+    rvs_cpu = max(ctx.twist_gap(poses_of(rcpu[i]), poses_of(rrecs[i])[:3]) for i in range(4))
+    check(rvs_cpu <= TWIST_BAR_CPU, f"serve_rgbd: card vs CPU twist {rvs_cpu} > {TWIST_BAR_CPU}")
+    emit("serve_rgbd", sessions=4, frames=n_rgbd, capacity=4, dispatches=rd, mean_slots_per_dispatch=rst["mean_batch"],
+         launches=rgot, gn_system_per_dispatch=rgot["gn_system"] / rd, ate_rmse=rates, twist_vs_cpu_3=rvs_cpu,
+         frames_per_s=4 * n_rgbd / rwall, card=card)
+
+    # ---- 21. serve_tsdf: 4 sessions x phase 7's 30 frames, 128^3 slots -----
+    walk_d, walk_poses = synthetic.render_trajectory(intr, 30, seed=0, device=dev)
+    walk = u16(walk_d)
+    vol_cfg = tsdf_mod.TsdfConfig()
+    ctx.reset_counts()
+    trecs, tlat, twall, tst = serve(lambda: batched_service(capacity=4, tsdf=True, tsdf_cfg=vol_cfg),
+                                    [walk] * 4)
+    tgot = ctx.read_counts()
+    td = tst["dispatches"]
+    ctx.check_counts(tgot, "serve_tsdf", levels * td, rounds * td, 2 * td, integrates=4 * td, raycasts=4 * td)
+    check(tst["errors"] == 0 and all(r["success"] for rs in trecs for r in rs), f"serve_tsdf: {tst}")
+    tates = [ate(trecs[i], walk_poses) for i in range(4)]
+    check(max(tates) < ATE_BAR, f"serve_tsdf: ATE rmse {tates}")
+    single = TsdfTracker(intr, volume=vol_cfg, depth_scale=scale, device=dev)
+    single_poses = [single.process(walk[f], float(f)).pose for f in range(30)]
+    tvs_single = max(ctx.twist_gap(single_poses, poses_of(trecs[i])) for i in range(4))
+    check(tvs_single <= TWIST_BAR_CPU, f"serve_tsdf: slots part from TsdfTracker by {tvs_single}")
+    sub_ex = BatchedExecutor(batching(capacity=4, tsdf=True, tsdf_cfg=vol_cfg, tsdf_submap_radius=0.05))
+    try:
+        sub = sub_ex.make_session_tracker()
+        sub_res = [sub.process(walk[f], float(f)) for f in range(30)]
+        reseeds = sub.num_reseeds
+    finally:
+        sub_ex.close()
+    check(reseeds >= 1 and all(r.success for r in sub_res), f"serve_tsdf: {reseeds} reseeds under the submap radius")
+    emit("serve_tsdf", sessions=4, frames=30, volume=vol_cfg.resolution, dispatches=td,
+         mean_slots_per_dispatch=tst["mean_batch"], launches=tgot, ate_rmse=tates, twist_vs_tsdf_tracker=tvs_single,
+         frames_per_s=4 * 30 / twall, latency_ms={"p50": pct(tlat, 0.5), "p90": pct(tlat, 0.9)},
+         submap_radius_0_05={"reseeds": reseeds, "frames": len(sub_res)}, card=card)
+
+    # ---- 22. serve_plain: the unbatched service, Tracker(method="keyframe") -
+    kf_cfg = TrackerConfig(intrinsics=intr, method="keyframe", depth_scale=scale, device="cuda")
+    plain_svc = TrackingService(lambda: Tracker(kf_cfg), depth_scale=scale)
+    try:
+        purl = f"http://127.0.0.1:{plain_svc.port}"
+        t0 = time.perf_counter()
+        precs = [post_frame(purl, walk[f], ts=float(f), timeout=timeout) for f in range(30)]
+        pwall = time.perf_counter() - t0
+        status = get_json(purl, "/status", timeout=timeout)
+    finally:
+        plain_svc.close()
+    direct = Tracker(kf_cfg)
+    direct_poses = [direct.process(walk[f], float(f)).pose for f in range(30)]
+    pgap = float(np.abs(np.stack(poses_of(precs)) - np.stack(direct_poses)).max())
+    check(pgap <= 1e-6 and all(r["success"] for r in precs), f"serve_plain: service parts from the tracker by {pgap}")
+    emit("serve_plain", frames=30, method="keyframe", pose_gap_vs_direct=pgap, frames_per_s=30 / pwall,
+         status_frames=status["frames"], card=card)
+
+    # ---- 23. rs_serve: the CLI as a subprocess ------------------------------
+    n_cli = 4
+    cli_intr = type(intr)(fx=0.8 * w, fy=0.8 * w, cx=(w - 1) / 2, cy=(h - 1) / 2, width=w, height=h)
+    cli_d, _ = synthetic.render_trajectory(cli_intr, n_cli, seed=1, device=dev)
+    cli_frames = u16(cli_d)
+    root = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "realsensetracker_tpu_torch.cli.rs_serve", "--batched", "--max-frames", str(n_cli),
+         "--depth-scale", str(scale)],
+        cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env={**os.environ, "PYTHONPATH": root + os.pathsep + os.environ.get("PYTHONPATH", "")},
+    )
+    try:
+        banner, m = "", None
+        for _ in range(50):  # the address line, past any warnings on the merged stream
+            line = proc.stdout.readline()
+            m = re.search(r"http://127\.0\.0\.1:(\d+)/", line)
+            if m or not line:
+                banner = line
+                break
+        check(m is not None, f"rs_serve: no address line (last {banner!r})")
+        cli_url = f"http://127.0.0.1:{m.group(1)}"
+        cli_recs = [post_frame(cli_url, cli_frames[f], ts=float(f), timeout=timeout) for f in range(n_cli)]
+        rest, _ = proc.communicate(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+    check(proc.returncode == 0, f"rs_serve: exit code {proc.returncode}: {rest}")
+    check(f"served {n_cli} frames" in rest, f"rs_serve: {rest!r}")
+    check(all(r["success"] for r in cli_recs), "rs_serve: a frame failed")
+    emit("rs_serve", frames=n_cli, banner=banner.strip(), tail=rest.strip().splitlines()[-1], card=card)
 
 
 def main() -> None:
@@ -1860,6 +2271,12 @@ def main() -> None:
         dev=dev, card=card, reset_counts=reset_counts, read_counts=read_counts, check_counts=check_counts,
         bound=bound, turns=turns, time_ms=time_ms, ate_of=ate_of, twist_gap=twist_gap, trace_calls=trace_calls,
         intr=intr,
+    ))
+
+    # ---- 18-23. serving: batched sessions, windows, RGB-D, dense, rs_serve -
+    serving_phases(types.SimpleNamespace(
+        dev=dev, card=card, intr=intr, reset_counts=reset_counts, read_counts=read_counts,
+        check_counts=check_counts, ate_of=ate_of, twist_gap=twist_gap,
     ))
 
     for name, n in main_launches.items():

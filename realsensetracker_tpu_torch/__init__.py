@@ -6,8 +6,9 @@ clouds, or by joint point-to-plane + photometric Gauss-Newton on RGB-D
 frames; pairwise cloud registration by FPFH matching or robust global
 registration; SLAM (keyframe odometry, loop closure and pose-graph
 optimization) with checkpoints; dense mapping (a TSDF volume tracked
-frame to model, KinectFusion's loop, meshes and an atlas of submaps),
-on an NVIDIA H100 by default (or, with ``device="cpu"``, on the CPU
+frame to model, KinectFusion's loop, meshes and an atlas of submaps);
+many sessions' streams advanced together, served over HTTP with
+cross-session batching, on an NVIDIA H100 by default (or, with ``device="cpu"``, on the CPU
 through the kernels' plain PyTorch versions). The JAX package ``realsensetracker_tpu``
 is the reference this port is held against by the ``tests/test_torch_*``
 parity tests; the port never imports it, nor JAX.
@@ -31,16 +32,20 @@ Layer map (each module sits at the same path as its JAX counterpart):
               marching-tetrahedra meshes, the submap atlas
   loop_closure/ keyframe database: place recognition, geometric verification
   models/     the rs_align_app pipeline (align_pair) and the named pipelines
-  parallel/   batched and chunked pair registration
+  parallel/   batched and chunked pair registration; multi-stream steps
+              (S slots advanced in one batched step, masked, windowed;
+              depth, RGB-D and dense slots)
   data/       synthetic raycast scenes (depth and RGB-D), depth-unit policy
   tracking/   frame-to-frame (with the voxel world map), frame-to-keyframe
               and frame-to-model trackers, their RGB-D frame and keyframe
               counterparts, the TSDF frame-to-model tracker, the SLAM
               tracker, tracker, SLAM, TSDF and submap checkpoints,
               trajectory I/O and ATE/RPE
-  api/        Tracker facade + TrackerConfig
+  api/        Tracker facade + TrackerConfig; the HTTP TrackingService and
+              the BatchedExecutor that coalesces sessions into one step
+  cli/        rs_serve, the service's entry point
   device.py   the default device ("cuda") and its check
-  interop.py  carries configuration and tracker state across from JAX
+  interop.py  carries configuration, tracker and slot state across from JAX
 """
 
 __version__ = "0.1.0"

@@ -17,6 +17,7 @@ import torch
 from realsensetracker_tpu_torch import device as device_mod
 from realsensetracker_tpu_torch.align.projective import ProjectiveIcpConfig
 from realsensetracker_tpu_torch.align.rgbd import RgbdIcpConfig
+from realsensetracker_tpu_torch.api.batching import BatchingConfig
 from realsensetracker_tpu_torch.api.config import AlignConfig, GicpConfig, TrackerConfig
 from realsensetracker_tpu_torch.api.tracker import _CloudTracker
 from realsensetracker_tpu_torch.geometry.camera import Intrinsics
@@ -24,6 +25,7 @@ from realsensetracker_tpu_torch.mapping.submaps import Submap, SubmapConfig, Sub
 from realsensetracker_tpu_torch.mapping.tsdf import TsdfConfig, TsdfVolume
 from realsensetracker_tpu_torch.ops.cloud import Cloud
 from realsensetracker_tpu_torch.ops.pyramid import PyramidLevel
+from realsensetracker_tpu_torch.parallel.streams import RgbdStreamState, StreamState, TsdfStreamState
 from realsensetracker_tpu_torch.tracking.accumulator import MapAccumulator
 from realsensetracker_tpu_torch.tracking.frame_to_frame import FrameToFrameTracker
 from realsensetracker_tpu_torch.tracking.frame_to_model import FrameToModelTracker
@@ -402,3 +404,63 @@ def submap_state_from_jax(jax_atlas, device=device_mod.DEFAULT) -> SubmapTsdfTra
     atlas.trajectory = _trajectory(jax_atlas.trajectory)
     atlas._pose_np = None if jax_atlas._pose_np is None else np.asarray(jax_atlas._pose_np, np.float32)
     return atlas
+
+
+# --- multi-stream state and the batching executor ------------------------------
+
+
+def _batched_levels(levels, device) -> tuple:
+    """JAX PyramidLevels batched over the slot axis -> port PyramidLevels."""
+    return tuple(PyramidLevel(*(_tensor(a, device) for a in lvl)) for lvl in levels)
+
+
+def _slot_fields(state, device) -> dict:
+    return {
+        "poses": _tensor(state.poses, device),
+        "initialized": _tensor(state.initialized, device),
+        "frame_count": _tensor(np.asarray(state.frame_count, np.int32), device),
+    }
+
+
+def stream_state_from_jax(state, device=device_mod.DEFAULT) -> StreamState:
+    """A JAX parallel.streams.StreamState (poses, batched reference
+    pyramids, initialized, frame_count) as the port's."""
+    return StreamState(ref_levels=_batched_levels(state.ref_levels, device), **_slot_fields(state, device))
+
+
+def rgbd_stream_state_from_jax(state, device=device_mod.DEFAULT) -> RgbdStreamState:
+    """A JAX RgbdStreamState (plane-table and intensity pyramids) as the port's."""
+    return RgbdStreamState(
+        ref_levels=_batched_levels(state.ref_levels, device),
+        ref_grays=tuple(_tensor(g, device) for g in state.ref_grays),
+        **_slot_fields(state, device),
+    )
+
+
+def tsdf_stream_state_from_jax(state, device=device_mod.DEFAULT) -> TsdfStreamState:
+    """A JAX TsdfStreamState ((S, V, V, V) tsdf and weight planes) as the port's."""
+    volume = TsdfVolume(_tensor(state.volume.tsdf, device), _tensor(state.volume.weight, device))
+    return TsdfStreamState(volume=volume, **_slot_fields(state, device))
+
+
+def batching_config_from_jax(cfg, device=device_mod.DEFAULT) -> BatchingConfig:
+    """A JAX BatchingConfig as the port's. A sharded one (mesh set) has no
+    counterpart on one device and raises."""
+    if getattr(cfg, "mesh", None) is not None:
+        raise ValueError("a BatchingConfig with a mesh shards the slot axis over devices; the port serves one device")
+    return BatchingConfig(
+        intrinsics=intrinsics_from_jax(cfg.intrinsics),
+        icp=icp_config_from_jax(cfg.icp),
+        capacity=int(cfg.capacity),
+        min_inlier_fraction=float(cfg.min_inlier_fraction),
+        linger_ms=float(cfg.linger_ms),
+        request_timeout_s=float(cfg.request_timeout_s),
+        window=int(cfg.window),
+        rgbd=bool(cfg.rgbd),
+        rgbd_icp=rgbd_config_from_jax(cfg.rgbd_icp),
+        tsdf=bool(cfg.tsdf),
+        tsdf_cfg=None if cfg.tsdf_cfg is None else tsdf_config_from_jax(cfg.tsdf_cfg),
+        tsdf_submap_radius=float(cfg.tsdf_submap_radius),
+        depth_scale=float(cfg.depth_scale),
+        device=str(device),
+    )

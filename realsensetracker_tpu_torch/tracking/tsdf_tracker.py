@@ -39,21 +39,22 @@ def _luma(color: torch.Tensor) -> torch.Tensor:
 
 
 def _track_views(depth: torch.Tensor, intr: camera.Intrinsics, track_scale: int):
-    """(tracking-resolution depth, intrinsics) of a live (H, W) frame:
-    ``track_scale`` (a power of two) halves it that many times with the ICP
-    pyramid's validity-aware 2x2 pooling (kernels/downsample on the card;
-    invalid pixels 0) and the intrinsics with Intrinsics.halved."""
+    """(tracking-resolution depth, intrinsics) of live (..., H, W) frames:
+    ``track_scale`` (a power of two) halves them that many times with the
+    ICP pyramid's validity-aware 2x2 pooling (kernels/downsample on the
+    card, one launch for all frames; invalid pixels 0) and the intrinsics
+    with Intrinsics.halved."""
     if track_scale <= 1:
         return depth, intr
     if track_scale & (track_scale - 1):
         raise ValueError(f"track_scale={track_scale} must be a power of 2")
     valid = torch.isfinite(depth) & (depth > 0)
-    d = torch.where(valid, depth, 0.0).contiguous()
+    d = torch.where(valid, depth, 0.0).reshape(-1, *depth.shape[-2:]).contiguous()
     halvings = track_scale.bit_length() - 1
-    out = downsample.downsample_levels(d[None], halvings + 1, 0.0)[-1][0][0]
+    out = downsample.downsample_levels(d, halvings + 1, 0.0)[-1][0]
     for _ in range(halvings):
         intr = intr.halved()
-    return out, intr
+    return out.reshape(*depth.shape[:-2], *out.shape[-2:]), intr
 
 
 def _pool_gray(gray: torch.Tensor, track_scale: int) -> torch.Tensor:

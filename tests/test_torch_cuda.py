@@ -797,3 +797,81 @@ def test_tsdf_tracker_on_cuda_matches_cpu(cuda):
                                              "tsdf_raycast": before["tsdf_raycast"] + 5}
         poses.append(np.stack([r.pose for r in res]))
     np.testing.assert_allclose(poses[1], poses[0], atol=1e-4)
+
+
+# ---- multi-stream steps and the batching executor on the card ----------------
+
+
+def _stream_frames(intr, s, n, device):
+    """(n, s, H, W) f32 frames: s short walks through one scene each."""
+    out = []
+    for i in range(s):
+        d, _ = synthetic.render_trajectory(intr, n, scene=synthetic.default_scene(seed=20 + i), seed=i,
+                                           step_scale=0.01)
+        out.append(d)
+    return torch.stack(out, 1).to(device)
+
+
+def test_masked_streams_on_cuda_match_cpu(cuda):
+    """step_streams_masked at S = 4 (staggered seeding, an inactive slot)
+    on the card within 1e-4 of the same code on the CPU, one gn_round
+    launch per association round for all slots."""
+    from realsensetracker_tpu_torch.parallel import streams
+
+    intr, cfg = _intr(120, 160), projective.ProjectiveIcpConfig(iters=(3, 3, 3))
+    frames = _stream_frames(intr, 4, 4, cuda)
+    states = {d: streams.blank_streams(intr, cfg, num_streams=4, device=d) for d in ("cpu", cuda)}
+    for r in range(4):
+        active = torch.tensor([True, True, r >= 1, r != 2])
+        seed = torch.tensor([r == 0, r == 0, r == 1, r == 0])
+        rows = {}
+        for d in ("cpu", cuda):
+            before = gn_step.LAUNCHES["gn_round"]
+            states[d], rows[d] = streams.step_streams_masked(states[d], frames[r].to(d), active.to(d), seed.to(d),
+                                                             intr, cfg)
+            if d != "cpu":
+                assert gn_step.LAUNCHES["gn_round"] - before == sum(cfg.iters)
+        np.testing.assert_allclose(rows[cuda].cpu().numpy(), rows["cpu"].numpy(), rtol=0, atol=1e-4)
+        assert torch.equal(rows[cuda][:, 32].cpu(), rows["cpu"][:, 32])
+
+
+def test_masked_streams_batch_invariant_on_cuda(cuda):
+    """A slot's stats row does not depend on which other slots share its
+    step: slot 0 advanced alone (others inactive) equals slot 0 advanced
+    with all slots active, bit for bit."""
+    from realsensetracker_tpu_torch.parallel import streams
+
+    intr, cfg = _intr(120, 160), projective.ProjectiveIcpConfig(iters=(3, 3, 3))
+    frames = _stream_frames(intr, 4, 3, cuda)
+    on = torch.ones(4, dtype=torch.bool, device=cuda)
+    only0 = torch.tensor([True, False, False, False], device=cuda)
+    seed0 = torch.ones(4, dtype=torch.bool, device=cuda)
+    a = streams.blank_streams(intr, cfg, num_streams=4, device=cuda)
+    b = streams.blank_streams(intr, cfg, num_streams=4, device=cuda)
+    a, _ = streams.step_streams_masked(a, frames[0], on, seed0, intr, cfg)
+    b, _ = streams.step_streams_masked(b, frames[0], on, seed0, intr, cfg)
+    for r in (1, 2):
+        a, ra = streams.step_streams_masked(a, frames[r], on, ~seed0, intr, cfg)
+        alone = torch.where(only0[:, None, None], frames[r], 0.0)
+        b, rb = streams.step_streams_masked(b, alone, only0, ~seed0, intr, cfg)
+        assert torch.equal(ra[0], rb[0])
+
+
+def test_batched_executor_on_cuda_matches_cpu(cuda):
+    """BatchedExecutor on the card, u16 frames at 1/5000 m, two sessions
+    through masked rounds: within 1e-4 of the CPU executor."""
+    from realsensetracker_tpu_torch.api.batching import BatchedExecutor, BatchingConfig
+
+    intr = _intr(120, 160)
+    frames = (_stream_frames(intr, 2, 4, "cpu").numpy() * 5000.0 + 0.5).astype(np.uint16)
+    poses = {}
+    for d in ("cpu", "cuda"):
+        ex = BatchedExecutor(BatchingConfig(intrinsics=intr, capacity=4, depth_scale=2e-4, device=d,
+                                            request_timeout_s=60.0))
+        try:
+            trackers = [ex.make_session_tracker() for _ in range(2)]
+            poses[d] = np.stack([[trackers[i].process(frames[f, i]).pose for f in range(4)] for i in range(2)])
+            assert ex.stats()["errors"] == 0
+        finally:
+            ex.close()
+    np.testing.assert_allclose(poses["cuda"], poses["cpu"], rtol=0, atol=1e-4)
