@@ -190,11 +190,29 @@ need for JAX. Phases, one JSON line each:
   23. rs_serve  -- python -m realsensetracker_tpu_torch.cli.rs_serve
                    --batched --max-frames 4 as a subprocess: exit 0,
                    "served 4 frames".
+  24. replay    -- host I/O and rs_replay (cli.rs_replay.main, in-process)
+                   on a 60-frame 640x480 TUM-layout sequence (16-bit depth
+                   PNGs at 1/5000 m, groundtruth.txt) and a 60-frame v2
+                   .rsc clip with color, written by the port in a temporary
+                   directory: (a) --tum --method projective --ate (ATE
+                   rmse < 0.02 m), (b) the same 10 frames with --device cpu
+                   (poses within 1e-4), (c) --record --method keyframe
+                   --window 8, (d) --method tsdf --save-mesh, (e) --method
+                   rgbd, each with its launch counts and ATE against the
+                   walk; host ms per frame and frames/s per run; producer
+                   decode ms per frame, native and numpy PNG path (bit-equal
+                   on every frame; which one TumSequence used and why);
+                   host syncs, device-to-host and host-to-device copies per
+                   frame from two profiler windows differenced (1 sync per
+                   frame, the pose read; none from staging), the upload
+                   stream against the compute stream and the uploads'
+                   overlap with kernels, the busy share; prefetch=2 against
+                   an inline load, in turns.
 
 Each main path (register, register_normal_space, tracker, keyframe,
 world_map, model, icp, gicp, align_pair, rgbd, pose_graph, slam, tsdf,
-tsdf_rgbd, submaps, serve_batched, serve_window, serve_rgbd, serve_tsdf)
-runs with every launch count set
+tsdf_rgbd, submaps, serve_batched, serve_window, serve_rgbd, serve_tsdf,
+and the replay runs a, c, d and e) runs with every launch count set
 to 0 just before it and read just after; a kernel the path runs must have
 launched there, and the cloud paths (model, icp, gicp, align_pair), which
 run no kernel of their own, must have launched none. Then the kernels line, with each kernel's bound (the
@@ -1310,6 +1328,238 @@ def serving_phases(ctx) -> None:
     emit("rs_serve", frames=n_cli, banner=banner.strip(), tail=rest.strip().splitlines()[-1], card=card)
 
 
+def replay_phase(ctx) -> None:
+    """Phase 24: host I/O and the replay entry point at 640x480. Writes a
+    60-frame TUM-layout sequence (16-bit depth PNGs at 1/5000 m) and a
+    60-frame v2 .rsc clip with color in a temporary directory, through the
+    port's writers, and replays them with cli.rs_replay.main in-process:
+    files -> decode on the FrameStream's producer thread -> pinned staging
+    -> an upload on its own CUDA stream -> the tracker -> the kernels. ctx
+    carries main()'s helpers (dev, card, reset_counts, read_counts,
+    check_counts)."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from realsensetracker_tpu_torch.align import projective
+    from realsensetracker_tpu_torch.align.rgbd import RgbdIcpConfig
+    from realsensetracker_tpu_torch.api import Tracker, TrackerConfig
+    from realsensetracker_tpu_torch.cli import rs_replay
+    from realsensetracker_tpu_torch.data import recorded, tum
+    from realsensetracker_tpu_torch.data.stream import stream_tum
+    from realsensetracker_tpu_torch.geometry import camera
+    from realsensetracker_tpu_torch.tracking import trajectory
+    from realsensetracker_tpu_torch.utils.profiling import device_trace
+
+    dev, card = ctx.dev, ctx.card
+    n_frames, h, w = 60, 480, 640
+    cfg = projective.ProjectiveIcpConfig()
+    levels, rounds = len(cfg.iters), sum(cfg.iters)
+    rgbd_cfg = projective.fit_levels(RgbdIcpConfig(), h, w)
+    rgbd_levels, rgbd_steps = len(rgbd_cfg.iters), sum(rgbd_cfg.iters) + 1
+    tmp = tempfile.mkdtemp(prefix="replay-")
+    seq_dir, clip_path = os.path.join(tmp, "seq"), os.path.join(tmp, "clip.rsc")
+
+    t0 = time.perf_counter()
+    tum.synthesize_tum_sequence(seq_dir, num_frames=n_frames, seed=0, width=w, height=h)
+    _, clip_truth = recorded.record_synthetic_clip(clip_path, num_frames=n_frames, seed=0, width=w, height=h,
+                                                   with_color=True, return_poses=True)
+    write_s = time.perf_counter() - t0
+    seq = tum.TumSequence.open(seq_dir)
+    paths = [os.path.join(seq_dir, rel) for _, rel in seq.depth_index]
+
+    # PNG decoders: the native one (when the library loads) bit-equal to
+    # the numpy one on every frame; producer decode ms per frame of each.
+    png_backend, png_why = tum.png_backend()
+    clip_backend, clip_why = recorded.backend()
+    t0 = time.perf_counter()
+    numpy_frames = [tum.read_png(p) for p in paths]
+    numpy_ms = (time.perf_counter() - t0) * 1e3 / n_frames
+    decode = {"numpy_ms_per_frame": numpy_ms}
+    if png_backend == "native":
+        from realsensetracker_tpu_torch.native import png_io
+
+        t0 = time.perf_counter()
+        native_frames = [png_io.read_png16(p) for p in paths]
+        decode["native_ms_per_frame"] = (time.perf_counter() - t0) * 1e3 / n_frames
+        t0 = time.perf_counter()
+        batch = seq.load_depth_batch(range(n_frames), raw=True)
+        decode["native_batch_ms_per_frame"] = (time.perf_counter() - t0) * 1e3 / n_frames
+        check(all(np.array_equal(a, b) for a, b in zip(native_frames, numpy_frames)),
+              "replay: the native PNG decoder differs from the numpy one")
+        check(np.array_equal(batch, np.stack(numpy_frames)), "replay: the native batch decoder differs")
+    emit("replay_io", frames=n_frames, shape=[h, w], write_s=write_s, png_backend=png_backend,
+         png_backend_why=png_why, clip_backend=clip_backend, clip_backend_why=clip_why,
+         native_equals_numpy=png_backend == "native", producer_decode=decode, card=card)
+
+    def replay(argv):
+        """rs_replay.main(argv + --json) with the counts reset just before
+        and read just after: (rows, summary lines, launches)."""
+        out = io.StringIO()
+        ctx.reset_counts()
+        with contextlib.redirect_stdout(out):
+            rc = rs_replay.main(argv + ["--json"])
+        launches = ctx.read_counts()
+        check(rc == 0, f"rs_replay {argv}: exit {rc}")
+        rows = [json.loads(ln) for ln in out.getvalue().splitlines() if ln.startswith("{")]
+        lines = [ln for ln in out.getvalue().splitlines() if not ln.startswith("{")]
+        return rows, lines, launches
+
+    def ate_line(lines):
+        return json.loads(next(ln for ln in lines if ln.startswith("ATE:"))[len("ATE:"):])
+
+    def host_ms(rows, warm=5):
+        ms = [r["ms"] for r in rows[warm:]]
+        return statistics.median(ms)
+
+    def fps(lines):
+        m = re.search(r"processed (\d+) frames in ([\d.]+)s \(([\d.]+) fps\)", "\n".join(lines))
+        check(m is not None, f"replay: no 'processed' line in {lines}")
+        return int(m.group(1)), float(m.group(3))
+
+    def clip_ate(rows):
+        est, gt = trajectory.Trajectory(), trajectory.Trajectory()
+        for r in rows:
+            est.append(r["timestamp"], np.asarray(r["pose"], np.float64).reshape(4, 4))
+            gt.append(r["timestamp"], clip_truth[r["frame"]].numpy())
+        return trajectory.absolute_trajectory_error(est, gt)
+
+    runs = {}
+    # (a) TUM, projective: raw u16 frames streamed, ATE against groundtruth.txt.
+    traj_a = os.path.join(tmp, "traj_a.txt")
+    rows, lines, got = replay(["--tum", seq_dir, "--method", "projective", "--ate", "--trajectory-out", traj_a])
+    ctx.check_counts(got, "replay projective", levels * n_frames, rounds * (n_frames - 1), n_frames)
+    n, rate = fps(lines)
+    ate = ate_line(lines)
+    check(n == n_frames and all(r["success"] for r in rows), f"replay projective: {n} frames, a frame failed")
+    check(ate["rmse"] < ATE_BAR, f"replay projective: ATE rmse {ate['rmse']} >= {ATE_BAR}")
+    check(os.path.getsize(traj_a) > 0, "replay projective: no trajectory file")
+    runs["a_tum_projective"] = {"frames": n, "ate_rmse": ate["rmse"], "host_ms_per_frame_median": host_ms(rows),
+                                "fps": rate, "launches": got}
+
+    # (b) the same for 10 frames on the CPU: the card within 1e-4.
+    cpu_rows, _, cpu_got = replay(["--tum", seq_dir, "--method", "projective", "--max-frames", "10",
+                                   "--device", "cpu"])
+    ctx.check_counts(cpu_got, "replay projective on the CPU", 0, 0, 0)
+    gap = max(float(np.abs(np.asarray(a["pose"]) - np.asarray(b["pose"])).max()) for a, b in zip(rows, cpu_rows))
+    check(len(cpu_rows) == 10 and gap <= TWIST_BAR_CPU, f"replay: card vs CPU pose gap {gap} > {TWIST_BAR_CPU}")
+    runs["b_card_vs_cpu"] = {"frames": len(cpu_rows), "pose_max_abs_diff": gap, "bar": TWIST_BAR_CPU}
+
+    # (c) the clip, keyframe in windows of 8: the first window seeds frame 0
+    # and pads the other 7 to 8 rows, the last pads its 4; one batched
+    # pyramid and 8 rows of GN rounds per window.
+    window = 8
+    rows, lines, got = replay(["--record", clip_path, "--method", "keyframe", "--window", str(window)])
+    n_win = 1 + -(-(n_frames - 1) // window)  # the seed, then ceil(59 / 8) windows
+    ctx.check_counts(got, "replay keyframe windowed", levels * n_win, rounds * window * (n_win - 1), n_win)
+    c_ate = clip_ate(rows)
+    check(len(rows) == n_frames and all(r["success"] for r in rows), "replay keyframe: a frame failed")
+    check(c_ate["rmse"] < ATE_BAR, f"replay keyframe: ATE rmse {c_ate['rmse']} >= {ATE_BAR}")
+    runs["c_clip_keyframe_w8"] = {"frames": fps(lines)[0], "ate_rmse": c_ate["rmse"],
+                                  "host_ms_per_frame_median": host_ms(rows), "fps": fps(lines)[1], "launches": got}
+
+    # (d) the clip, tsdf (default 128^3 x 4 cm volume) with a mesh export.
+    mesh_path = os.path.join(tmp, "mesh.ply")
+    rows, lines, got = replay(["--record", clip_path, "--method", "tsdf", "--save-mesh", mesh_path])
+    tracked = n_frames - 1
+    ctx.check_counts(got, "replay tsdf", levels * tracked, rounds * tracked, 2 * tracked,
+                     integrates=n_frames, raycasts=tracked)
+    d_ate = clip_ate(rows)
+    m = re.search(r"mesh \((\d+) triangles\)", "\n".join(lines))
+    check(m is not None and int(m.group(1)) > 0 and os.path.getsize(mesh_path) > 0, f"replay tsdf: mesh {lines}")
+    check(all(r["success"] for r in rows), "replay tsdf: a frame failed")
+    check(d_ate["rmse"] < ATE_BAR, f"replay tsdf: ATE rmse {d_ate['rmse']} >= {ATE_BAR}")
+    runs["d_clip_tsdf_mesh"] = {"frames": fps(lines)[0], "ate_rmse": d_ate["rmse"], "triangles": int(m.group(1)),
+                                "host_ms_per_frame_median": host_ms(rows), "fps": fps(lines)[1], "launches": got}
+
+    # (e) the clip, rgbd: gray from the clip's color plane, gn_system.
+    rows, lines, got = replay(["--record", clip_path, "--method", "rgbd"])
+    ctx.check_counts(got, "replay rgbd", rgbd_levels * n_frames, 0, 2 * n_frames - 1,
+                     systems=rgbd_steps * (n_frames - 1))
+    e_ate = clip_ate(rows)
+    check(all(r["success"] for r in rows), "replay rgbd: a frame failed")
+    check(e_ate["rmse"] < ATE_BAR, f"replay rgbd: ATE rmse {e_ate['rmse']} >= {ATE_BAR}")
+    runs["e_clip_rgbd"] = {"frames": fps(lines)[0], "ate_rmse": e_ate["rmse"],
+                           "host_ms_per_frame_median": host_ms(rows), "fps": fps(lines)[1], "launches": got}
+    emit("replay", bar_ate=ATE_BAR, runs=runs, card=card)
+
+    # Syncs and copies per frame: two profiled replays of 10 and 30 frames,
+    # differenced (set-up and the first, untracked frame cancel out). Host
+    # syncs are also counted by the profiler's thread: the thread that
+    # launches the kernels (the consumer) and any other (the producer).
+    def profiled(max_frames):
+        with device_trace(tmp, f"trace{max_frames}.json") as prof:
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                rc = rs_replay.main(["--tum", seq_dir, "--method", "projective", "--max-frames", str(max_frames)])
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        check(rc == 0, "replay: profiled run failed")
+        events = prof.events()
+        launches = [e.thread for e in events if e.name.startswith("cudaLaunchKernel")]
+        consumer = statistics.mode(launches) if launches else None
+        sync_names = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize")
+        syncs = [e for e in events if e.name in sync_names]
+        device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+        with open(os.path.join(tmp, f"trace{max_frames}.json")) as f:
+            trace = json.load(f)["traceEvents"]
+        kernels = [e for e in trace if e.get("cat") == "kernel"]
+        htod = [e for e in trace if e.get("cat") == "gpu_memcpy" and "HtoD" in e.get("name", "")]
+        uploads = [e for e in htod if e["args"].get("bytes") == h * w * 2]  # the u16 frames
+        compute = statistics.mode([e["args"]["stream"] for e in kernels]) if kernels else None
+        spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in kernels)
+        overlap = 0.0
+        for u in uploads:
+            a, b = u["ts"], u["ts"] + u["dur"]
+            overlap += sum(max(0.0, min(b, y) - max(a, x)) for x, y in spans if x < b and y > a)
+        busy, end = 0.0, float("-inf")
+        for a, b in sorted((e.time_range.start, e.time_range.end) for e in device):
+            busy += max(0.0, b - max(a, end))
+            end = max(end, b)
+        return {"syncs": len(syncs), "syncs_consumer_thread": sum(e.thread == consumer for e in syncs),
+                "syncs_other_threads": sum(e.thread != consumer for e in syncs),
+                "dtoh": sum("DtoH" in e.name for e in device), "htod": len(htod), "frame_uploads": len(uploads),
+                "upload_streams": sorted({e["args"]["stream"] for e in uploads}), "compute_stream": compute,
+                "upload_us": sum(e["dur"] for e in uploads), "upload_overlap_us": overlap,
+                "busy_share": busy / wall_us}
+
+    p10, p30 = profiled(10), profiled(30)
+    per_frame = {k: (p30[k] - p10[k]) / 20
+                 for k in ("syncs", "syncs_other_threads", "dtoh", "htod", "frame_uploads")}
+    check(per_frame["syncs"] == 1, f"replay: host syncs per frame {per_frame} (expected 1: the pose read)")
+    check(per_frame["frame_uploads"] == 1, f"replay: frame uploads per frame {per_frame}")
+    check(p30["compute_stream"] not in p30["upload_streams"],
+          f"replay: uploads on streams {p30['upload_streams']}, the compute stream is {p30['compute_stream']}")
+
+    # prefetch=2 against an inline load over the same 60 frames, in turns.
+    def run_prefetch():
+        trk = Tracker(TrackerConfig(intrinsics=camera.TUM_FR1, method="projective", depth_scale=1 / tum.DEPTH_SCALE))
+        with stream_tum(seq, raw=True, device=dev) as fs:
+            for ts, d in fs:
+                trk.process(d, ts)
+
+    def run_inline():
+        trk = Tracker(TrackerConfig(intrinsics=camera.TUM_FR1, method="projective", depth_scale=1 / tum.DEPTH_SCALE))
+        for ts, d in seq.frames(raw=True):
+            trk.process(torch.from_numpy(d).to(dev), ts)
+
+    turns_ms = {"prefetch": [], "inline": []}
+    for name, fn in (("prefetch", run_prefetch), ("inline", run_inline), ("inline", run_inline),
+                     ("prefetch", run_prefetch)):
+        t0 = time.perf_counter()
+        fn()
+        turns_ms[name].append((time.perf_counter() - t0) * 1e3 / n_frames)
+    emit("replay_stream", per_frame=per_frame, window_10=p10, window_30=p30,
+         uploads_off_compute_stream=p30["compute_stream"] not in p30["upload_streams"],
+         upload_overlap_share=p30["upload_overlap_us"] / max(p30["upload_us"], 1e-9),
+         ms_per_frame_prefetch2=turns_ms["prefetch"], ms_per_frame_inline=turns_ms["inline"], card=card)
+    shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -2277,6 +2527,11 @@ def main() -> None:
     serving_phases(types.SimpleNamespace(
         dev=dev, card=card, intr=intr, reset_counts=reset_counts, read_counts=read_counts,
         check_counts=check_counts, ate_of=ate_of, twist_gap=twist_gap,
+    ))
+
+    # ---- 24. replay: TUM and .rsc files through rs_replay ----------------
+    replay_phase(types.SimpleNamespace(
+        dev=dev, card=card, reset_counts=reset_counts, read_counts=read_counts, check_counts=check_counts,
     ))
 
     for name, n in main_launches.items():

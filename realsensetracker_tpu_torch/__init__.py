@@ -8,7 +8,7 @@ registration; SLAM (keyframe odometry, loop closure and pose-graph
 optimization) with checkpoints; dense mapping (a TSDF volume tracked
 frame to model, KinectFusion's loop, meshes and an atlas of submaps);
 many sessions' streams advanced together, served over HTTP with
-cross-session batching, on an NVIDIA H100 by default (or, with ``device="cpu"``, on the CPU
+cross-session batching, recorded clips and TUM sequences replayed from disk, on an NVIDIA H100 by default (or, with ``device="cpu"``, on the CPU
 through the kernels' plain PyTorch versions). The JAX package ``realsensetracker_tpu``
 is the reference this port is held against by the ``tests/test_torch_*``
 parity tests; the port never imports it, nor JAX.
@@ -35,7 +35,12 @@ Layer map (each module sits at the same path as its JAX counterpart):
   parallel/   batched and chunked pair registration; multi-stream steps
               (S slots advanced in one batched step, masked, windowed;
               depth, RGB-D and dense slots)
-  data/       synthetic raycast scenes (depth and RGB-D), depth-unit policy
+  data/       synthetic raycast scenes (depth and RGB-D), depth-unit policy;
+              .rsc clips, TUM sequences (a numpy + zlib PNG codec), the
+              protobuf cloud reader, random sources, and the FrameStream
+              that prefetches frames onto the card on its own CUDA stream
+  native/     the port's build and ctypes loader of the C++ host library
+              (native/src: clip codec, PNG16 decoder, voxel-hash map)
   tracking/   frame-to-frame (with the voxel world map), frame-to-keyframe
               and frame-to-model trackers, their RGB-D frame and keyframe
               counterparts, the TSDF frame-to-model tracker, the SLAM
@@ -43,7 +48,11 @@ Layer map (each module sits at the same path as its JAX counterpart):
               trajectory I/O and ATE/RPE
   api/        Tracker facade + TrackerConfig; the HTTP TrackingService and
               the BatchedExecutor that coalesces sessions into one step
-  cli/        rs_serve, the service's entry point
+  cli/        rs_serve, the service's entry point; rs_replay (recorded
+              clips and TUM sequences to a trajectory and its ATE) and
+              rs_tracker (a synthetic stream)
+  utils/      stopwatches, stage timing, device traces, NaN checks
+  vis/        PNG/PLY writers and the live HTTP viewer
   device.py   the default device ("cuda") and its check
   interop.py  carries configuration, tracker and slot state across from JAX
 """

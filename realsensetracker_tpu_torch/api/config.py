@@ -2,7 +2,8 @@
 
 Port of realsensetracker_tpu/api/config.py: every tracking method
 ("projective", "keyframe", "model", "icp", "gicp", "rgbd", "tsdf") and the
-pairwise pipelines of ``models``, plus the torch device the tracker runs on.
+pairwise pipelines of ``models``, plus the torch device the tracker runs on,
+and the replay app's settings (ReplayConfig).
 Defaults reproduce the reference's settings:
 
 * AlignConfig mirrors RsAlignAppSettings (rs_align_app.cpp:21-31):
@@ -77,3 +78,13 @@ class TrackerConfig:
     map_voxel_size: float = 0.05  # rs_replay_app.cpp:178
     depth_scale: float = 1e-3  # meters per raw unit for INTEGER depth frames
     device: str = device_mod.DEFAULT  # "cpu" runs every kernel's plain torch version
+
+
+@dataclass
+class ReplayConfig:
+    """Replay app settings (ref RsReplayAppSettings, rs_replay_app.cpp:36-39)."""
+
+    record_file: str = ""
+    frame_interval_ms: float = 0.0
+    max_frames: int = 0  # 0 = all
+    trajectory_out: str = ""

@@ -20,6 +20,7 @@ from realsensetracker_tpu_torch.align.rgbd import RgbdIcpConfig
 from realsensetracker_tpu_torch.api.batching import BatchingConfig
 from realsensetracker_tpu_torch.api.config import AlignConfig, GicpConfig, TrackerConfig
 from realsensetracker_tpu_torch.api.tracker import _CloudTracker
+from realsensetracker_tpu_torch.data.recorded import Clip
 from realsensetracker_tpu_torch.geometry.camera import Intrinsics
 from realsensetracker_tpu_torch.mapping.submaps import Submap, SubmapConfig, SubmapTsdfTracker, _to_host
 from realsensetracker_tpu_torch.mapping.tsdf import TsdfConfig, TsdfVolume
@@ -42,6 +43,14 @@ def intrinsics_from_jax(obj) -> Intrinsics:
         fx=float(obj.fx), fy=float(obj.fy), cx=float(obj.cx), cy=float(obj.cy),
         width=int(obj.width), height=int(obj.height),
     )
+
+
+def clip_from_jax(clip) -> Clip:
+    """A JAX recorded.Clip as the port's: the same host arrays, the
+    intrinsics rebuilt as the port's camera.Intrinsics."""
+    colors = None if clip.colors is None else np.asarray(clip.colors, np.uint8)
+    return Clip(depths=np.asarray(clip.depths, np.float32), timestamps=np.asarray(clip.timestamps, np.float64),
+                intrinsics=intrinsics_from_jax(clip.intrinsics), colors=colors)
 
 
 def icp_config_from_jax(cfg) -> ProjectiveIcpConfig:

@@ -120,3 +120,23 @@ def tracked_volumes_close(jvol, pvol, atol=1e-4, max_parted=1e-4):
     jw, pw = np.asarray(jvol.weight), pvol.weight.numpy()
     parted = (jw != pw) | (np.abs(pvol.tsdf.numpy() - np.asarray(jvol.tsdf)) > atol)
     assert parted.mean() <= max_parted, f"{int(parted.sum())} voxels parted"
+
+
+# --- host I/O --------------------------------------------------------------------
+
+
+def block_jax_native(mp) -> None:
+    """Keep the JAX package from building or loading its native library
+    (native/build/, built by cmake with no lock): its loaders raise OSError,
+    so JAX reads clips through read_clip_py and PNGs through PIL. ``mp`` is
+    a pytest MonkeyPatch; undo() restores the loaders."""
+    import realsensetracker_tpu.native as jnative
+    from realsensetracker_tpu.data import recorded as jrecorded
+    from realsensetracker_tpu.native import clip_io, png_io, voxel_map
+
+    def refuse(*args, **kwargs):
+        raise OSError("the JAX package's native library stays unbuilt in the port's tests")
+
+    for mod in (jnative, clip_io, png_io, voxel_map):
+        mp.setattr(mod, "load", refuse)
+    mp.setattr(jrecorded, "_NATIVE_CLIP_IO", None)
