@@ -209,13 +209,38 @@ need for JAX. Phases, one JSON line each:
                    overlap with kernels, the busy share; prefetch=2 against
                    an inline load, in turns.
 
+  25. cli        -- the remaining entry points through their main(argv) at
+                   640x480, in-process: rs_benchmark projective-icp at its
+                   defaults (B=64, 10 calls) and at bench.py's workload
+                   (--batch 2048 --chunk 512 --iters 3), each JSON line
+                   printed, the second beside phase 9's timing_register
+                   rate, sum(iters) gn_round launches per registration or
+                   chunk; the same with --profile (the trace's gn_round,
+                   level and downsample kernels per call); its inputs
+                   (rs_benchmark.projective_inputs) registered once, every
+                   pair within 3e-3 of the rendered twist; the gicp and
+                   gnc-icp (4 x 4096 points, no kernel), rgbd (B=8,
+                   sum(iters) + 1 gn_system launches per call),
+                   slam-window and tsdf-window (40 frames, window 8)
+                   pipelines; rs_streams with its defaults (8 x 30),
+                   --window 8, --rgb (8 x 6) and --tsdf (8 x 10, 128^3),
+                   every stream tracking, the launches per step counted,
+                   FPS/stream and config 5 MET or not, and each mode at
+                   160x120, 2 x 4 frames, within 1e-4 (poses) of the CPU;
+                   rs_align on two frames of a 640x480 clip (default
+                   flags, --capacity 8192) within 1e-3 of the CPU, its
+                   truth gaps printed; capture --clip and rs_viewer --view
+                   --ply-dir with the PLY point counts of the CPU run;
+                   rs_viewer --loop --record --live-latest (8 frames).
+
 Each main path (register, register_normal_space, tracker, keyframe,
 world_map, model, icp, gicp, align_pair, rgbd, pose_graph, slam, tsdf,
 tsdf_rgbd, submaps, serve_batched, serve_window, serve_rgbd, serve_tsdf,
-and the replay runs a, c, d and e) runs with every launch count set
-to 0 just before it and read just after; a kernel the path runs must have
-launched there, and the cloud paths (model, icp, gicp, align_pair), which
-run no kernel of their own, must have launched none. Then the kernels line, with each kernel's bound (the
+the replay runs a, c, d and e, and each CLI run of phase 25) runs with
+every launch count set to 0 just before it and read just after; a kernel
+the path runs must have launched there, and the cloud paths (model, icp,
+gicp, align_pair, rs_benchmark gicp and gnc-icp), which run no kernel of
+their own, must have launched none. Then the kernels line, with each kernel's bound (the
 larger of its bytes over 3.35 TB/s and its f32 operations over 67
 TFLOP/s, from this run's inputs), and last {"ok": true, "device": {...}}.
 Any failed check raises: the exit code is non-zero and the last line is
@@ -1560,6 +1585,291 @@ def replay_phase(ctx) -> None:
     shutil.rmtree(tmp, ignore_errors=True)
 
 
+def _capture_main(main, argv):
+    """main(argv) with its standard output and error captured: (rc, stdout
+    lines, stderr)."""
+    import contextlib
+    import io
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = main(argv)
+    return rc, out.getvalue().splitlines(), err.getvalue()
+
+
+def _recording(module, names):
+    """Wrap module.<name> for each name so that the state each call
+    returns (out[0]) is kept: (box, undo)."""
+    box, saved = {}, {name: getattr(module, name) for name in names}
+    for name, fn in saved.items():
+        def record(*a, _fn=fn, **k):
+            out = _fn(*a, **k)
+            box["state"] = out[0]
+            return out
+
+        setattr(module, name, record)
+    return box, lambda: [setattr(module, n, f) for n, f in saved.items()]
+
+
+def cli_phase(ctx) -> None:
+    """Phase 25: the remaining entry points on the card, each through its
+    main(argv) at 640x480: rs_benchmark (every pipeline), rs_streams (the
+    four modes), rs_align, capture and rs_viewer. ctx carries main()'s
+    helpers (dev, card, reset_counts, read_counts, check_counts) and
+    timing_register_pairs_per_s, phase 9's rate on the same workload."""
+    import numpy as np
+    import shutil
+    import tempfile
+
+    import torch
+
+    from realsensetracker_tpu_torch.align import projective
+    from realsensetracker_tpu_torch.align.rgbd import RgbdIcpConfig
+    from realsensetracker_tpu_torch.cli import capture, rs_align, rs_benchmark, rs_streams, rs_viewer
+    from realsensetracker_tpu_torch.data import recorded, synthetic
+    from realsensetracker_tpu_torch.geometry import se3
+    from realsensetracker_tpu_torch.parallel import batched, streams
+
+    dev, card = ctx.dev, ctx.card
+    h, w = 480, 640
+    cfg = projective.ProjectiveIcpConfig()
+    levels, rounds = len(cfg.iters), sum(cfg.iters)
+    rgbd_cfg = projective.fit_levels(RgbdIcpConfig(), h, w)
+    rgbd_levels, rgbd_steps = len(rgbd_cfg.iters), sum(rgbd_cfg.iters) + 1
+    tmp = tempfile.mkdtemp(prefix="cli-")
+
+    def bench(argv):
+        """rs_benchmark.main(argv) with the counts reset just before and read
+        just after: (JSON record, launches, seconds)."""
+        ctx.reset_counts()
+        t0 = time.perf_counter()
+        rc, lines, _ = _capture_main(rs_benchmark.main, argv)
+        seconds = time.perf_counter() - t0
+        launches = ctx.read_counts()
+        check(rc == 0 and len(lines) == 1, f"rs_benchmark {argv}: exit {rc}, {lines}")
+        return json.loads(lines[0]), launches, seconds
+
+    # rs_benchmark projective-icp: the defaults (B=64, 10 calls after a
+    # warm-up), then bench.py's workload (2048 pairs in chunks of 512, 3
+    # calls). register_batch: one target and one source pyramid per
+    # registration (or per chunk), sum(iters) gn_round launches.
+    runs = {}
+    rec, got, secs = bench([])
+    n_calls = 1 + 10
+    ctx.check_counts(got, "rs_benchmark default", levels * n_calls, rounds * n_calls, 2 * n_calls)
+    runs["projective_b64"] = {"record": rec, "launches": got, "seconds_with_setup": secs}
+    rec, got, secs = bench(["--batch", "2048", "--chunk", "512", "--iters", "3"])
+    n_chunks = (1 + 3) * (2048 // 512)
+    ctx.check_counts(got, "rs_benchmark 2048/512", levels * n_chunks, rounds * n_chunks, 2 * n_chunks)
+    runs["projective_b2048_c512"] = {"record": rec, "launches": got, "seconds_with_setup": secs,
+                                     "timing_register_pairs_per_s": ctx.timing_register_pairs_per_s}
+    print(json.dumps(runs["projective_b64"]["record"]), flush=True)
+    print(json.dumps(rec), flush=True)
+
+    # The same run with --profile: the device trace of the timed region
+    # (2 calls) holds sum(iters) gn_round kernels per call, and level and
+    # downsample kernels (a trace can miss the first kernel or two after
+    # the profiler starts: those are counted exactly above).
+    prof_dir = os.path.join(tmp, "profile")
+    rec_p, got_p, _ = bench(["--iters", "2", "--profile", prof_dir])
+    with open(os.path.join(prof_dir, "trace.json")) as f:
+        kernels = [e["name"] for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"]
+    traced = {name: sum(name in k for k in kernels)
+              for name in ("gn_round_kernel", "level_packed_kernel", "downsample_kernel")}
+    check(traced["gn_round_kernel"] == 2 * rounds, f"rs_benchmark --profile: {traced} (gn_round {2 * rounds})")
+    check(traced["level_packed_kernel"] > 0 and traced["downsample_kernel"] > 0, f"rs_benchmark --profile: {traced}")
+    runs["projective_profiled"] = {"record": rec_p, "trace_kernels": traced, "device_kernels": len(kernels)}
+
+    # The factored inputs, registered once: every pair within 3e-3 (twist)
+    # of the rendered motion.
+    intr, src, dst, T_true = rs_benchmark.projective_inputs(64, w, h, dev)
+    ctx.reset_counts()
+    T = batched.register_batch(src, dst, intr, cfg).transform
+    ctx.read_counts()
+    gaps = se3.log(se3.compose(se3.inverse(T_true)[None], T)).abs().amax(-1)
+    worst = gaps.max().item()
+    check(worst < TWIST_BAR_MOTION, f"rs_benchmark inputs: twist gap {worst} >= {TWIST_BAR_MOTION}")
+    runs["projective_inputs"] = {"pairs": 64, "twist_gap_max": worst, "bar": TWIST_BAR_MOTION}
+    del src, dst
+
+    # The other pipelines, small. The cloud pipelines run no kernel of the
+    # port's; rgbd one target pyramid, one source chain and
+    # sum(iters) + 1 gn_system launches per registration of the batch.
+    rec, got, secs = bench(["--pipeline", "gicp", "--batch", "4", "--points", "4096", "--iters", "1"])
+    ctx.check_counts(got, "rs_benchmark gicp", 0, 0, 0)
+    runs["gicp"] = {"record": rec, "seconds_with_setup": secs}
+    rec, got, secs = bench(["--pipeline", "gnc-icp", "--batch", "4", "--points", "4096", "--iters", "1"])
+    ctx.check_counts(got, "rs_benchmark gnc-icp", 0, 0, 0)
+    runs["gnc_icp"] = {"record": rec, "seconds_with_setup": secs}
+    rec, got, secs = bench(["--pipeline", "rgbd", "--batch", "8", "--iters", "2"])
+    ctx.check_counts(got, "rs_benchmark rgbd", rgbd_levels * 3, 0, 2 * 3, systems=rgbd_steps * 3)
+    runs["rgbd"] = {"record": rec, "launches": got, "seconds_with_setup": secs}
+    for name in ("slam-window", "tsdf-window"):
+        rec, got, secs = bench(["--pipeline", name, "--batch", "40", "--window", "8"])
+        want = ("gn_round", "build_level_packed", "downsample_levels") + (
+            ("tsdf_integrate", "tsdf_raycast") if name == "tsdf-window" else ())
+        check(all(got[k] > 0 for k in want), f"rs_benchmark {name}: launches {got}")
+        runs[name] = {"record": rec, "launches": got, "seconds_with_setup": secs}
+    emit("cli_rs_benchmark", runs=runs, card=card)
+
+    # rs_streams, the four modes at 640x480: per step one batched
+    # registration of the 8 streams (sum(iters) gn_round launches, one
+    # pyramid), or one joint RGB-D registration (sum(iters) + 1 gn_system
+    # launches), or 8 renders (2 raycast launches each, coarse-to-fine)
+    # and 8 integrates. The warm-up step (or window) is counted with them.
+
+    def streams_run(argv):
+        ctx.reset_counts()
+        rc, lines, err = _capture_main(rs_streams.main, argv)
+        got = ctx.read_counts()
+        check(rc == 0, f"rs_streams {argv}: exit {rc}: {err}")
+        m = re.search(r"x (\d+) steps in ([\d.]+)s: ([\d.]+) FPS/stream \((\d+) frames/s aggregate\)",
+                      "\n".join(lines))
+        check(m is not None, f"rs_streams {argv}: no summary in {lines[-3:]}")
+        target = next(ln for ln in lines if ln.startswith("config-5 target"))
+        tracking = [ln for ln in lines if ln.startswith("frame ")]
+        check(tracking and all(ln.endswith("8/8 streams tracking") for ln in tracking),
+              f"rs_streams {argv}: {[ln for ln in tracking if not ln.endswith('8/8 streams tracking')]}")
+        return {"steps": int(m.group(1)), "seconds": float(m.group(2)), "fps_per_stream": float(m.group(3)),
+                "frames_per_s": int(m.group(4)), "config5": target.split(": ")[1], "launches": got}
+
+    s = 8  # the CLI's default --streams
+    modes = {}
+    t0 = time.perf_counter()
+    # (label, extra flags, steps with the warm-up, the set-up's launches)
+    for label, extra, n, setup in (
+            ("depth", [], 1 + 29, {"levels": levels, "pyramids": 1}),
+            ("window8", ["--window", "8"], 8 + 24 + 5, {"levels": levels, "pyramids": 1}),
+            ("rgb", ["--rgb", "--frames", "6"], 1 + 5, {"levels": rgbd_levels, "pyramids": 1}),
+            ("tsdf", ["--tsdf", "--frames", "10"], 1 + 9, {"integrates": s})):
+        r = streams_run(extra)
+        if label == "rgb":  # per step: the target pyramid, the source chain, the joint steps
+            per = {"levels": rgbd_levels, "gn_rounds": 0, "pyramids": 2, "systems": rgbd_steps}
+        elif label == "tsdf":  # per step: S coarse-to-fine renders, one registration, S integrates
+            per = {"levels": levels, "gn_rounds": rounds, "pyramids": 2, "integrates": s, "raycasts": 2 * s}
+        else:  # per step: one pyramid of the S new frames, one registration
+            per = {"levels": levels, "gn_rounds": rounds, "pyramids": 1}
+        want = {k: per.get(k, 0) * n + setup.get(k, 0) for k in set(per) | set(setup)}
+        ctx.check_counts(r["launches"], f"rs_streams {label}", **want)
+        r["launches_per_step"] = per
+        modes[label] = r
+    modes_s = time.perf_counter() - t0
+
+    # The card against the CPU, each mode at 160x120, 2 streams x 4 frames,
+    # on the same frames (rendered on the CPU for both runs): the final
+    # poses of every stream within 1e-4.
+    small = ["--streams", "2", "--frames", "4", "--width", "160", "--height", "120"]
+    real_renders = {name: getattr(synthetic, name) for name in ("render_trajectory", "render_trajectory_rgbd")}
+
+    def render_on_cpu(real):
+        def render(intr_, n_, scene=None, **kw):
+            return real(intr_, n_, scene=synthetic.Scene(*(x.cpu() if torch.is_tensor(x) else x for x in scene)),
+                        **kw)
+        return render
+
+    vs_cpu = {}
+    t0 = time.perf_counter()
+    for label, extra in (("depth", []), ("window2", ["--window", "2"]), ("rgb", ["--rgb"]), ("tsdf", ["--tsdf"])):
+        poses = {}
+        for device in ("cuda", "cpu"):
+            box, undo = _recording(streams, ("step_streams", "step_streams_window", "step_streams_masked_rgbd",
+                                             "step_tsdf_streams"))
+            for name, real in real_renders.items():
+                setattr(synthetic, name, render_on_cpu(real))
+            try:
+                rc, _, err = _capture_main(rs_streams.main, small + extra + ["--device", device])
+            finally:
+                undo()
+                for name, real in real_renders.items():
+                    setattr(synthetic, name, real)
+            check(rc == 0, f"rs_streams {label} on {device}: {err}")
+            poses[device] = box["state"].poses.cpu().double()
+        vs_cpu[label] = (poses["cuda"] - poses["cpu"]).abs().max().item()
+    vs_cpu_s = time.perf_counter() - t0
+    worst = max(vs_cpu.values())
+    check(worst <= TWIST_BAR_CPU, f"rs_streams: card vs CPU poses {vs_cpu} > {TWIST_BAR_CPU}")
+    emit("cli_rs_streams", streams=s, modes=modes, poses_vs_cpu=vs_cpu, bar_vs_cpu=TWIST_BAR_CPU,
+         seconds={"modes": modes_s, "vs_cpu": vs_cpu_s}, card=card)
+
+    # rs_align on two 640x480 frames of a clip (default flags, the 8192
+    # cap): the card within 1e-3 of the CPU. The truth gaps are printed
+    # with no bar: two frames' own voxel clouds sample the surfaces
+    # differently (phase align_pair), and the FPFH cap of 64 truncates the
+    # 0.5 m ball, whose Kabsch seed can land off even on shared points.
+    clip_path = os.path.join(tmp, "clip.rsc")
+    clip, clip_poses = recorded.record_synthetic_clip(clip_path, num_frames=2, seed=0, width=w, height=h,
+                                                      with_color=True, return_poses=True)
+    T_rel = se3.compose(se3.inverse(clip_poses[1]), clip_poses[0])
+
+    def align(argv):
+        ctx.reset_counts()
+        t0 = time.perf_counter()
+        rc, lines, err = _capture_main(rs_align.main, argv + ["--capacity", "8192"])
+        seconds = time.perf_counter() - t0
+        got = ctx.read_counts()
+        check(rc == 0, f"rs_align {argv}: exit {rc}: {err}")
+        text = "\n".join(lines)
+        nums = re.findall(r"[-+]?\d+\.?\d*(?:e[-+]?\d+)?", text.split("transform :")[1])[:16]
+        T_ = torch.tensor([float(x) for x in nums], dtype=torch.float64).reshape(4, 4)
+        return {"T": T_, "matches": int(text.split("matches :")[1].split()[0]), "seconds": seconds,
+                "launches": got}
+
+    def gap(Ta, Tb):
+        return se3.log((torch.linalg.inv(Ta.double()) @ Tb.double()).float()).abs().max().item()
+
+    card_run = align(["--clip", clip_path])
+    cpu_run = align(["--clip", clip_path, "--device", "cpu"])
+    align_vs_cpu = gap(card_run["T"], cpu_run["T"])
+    check(align_vs_cpu <= CLOUD_CPU_BAR, f"rs_align: card vs CPU twist {align_vs_cpu} > {CLOUD_CPU_BAR}")
+    src_cloud = rs_align._cloud_from_depth(clip.depths[0], clip.intrinsics, 8192, dev)
+    pts = src_cloud.points[src_cloud.mask]
+    np.save(os.path.join(tmp, "s.npy"), pts.cpu().numpy())
+    np.save(os.path.join(tmp, "d.npy"), se3.transform_points(T_rel.to(dev), pts).cpu().numpy())
+    shared = align(["-s", os.path.join(tmp, "s.npy"), "-t", os.path.join(tmp, "d.npy")])
+    align_row = {
+        "card_vs_cpu_twist": align_vs_cpu, "bar_vs_cpu": CLOUD_CPU_BAR,
+        "clip_truth_gap_card": gap(card_run["T"], T_rel), "clip_truth_gap_cpu": gap(cpu_run["T"], T_rel),
+        "shared_points_truth_gap_card": gap(shared["T"], T_rel), "motion_twist_max": se3.log(T_rel).abs().max().item(),
+        "matches": [card_run["matches"], cpu_run["matches"], shared["matches"]],
+        "seconds": {"card": card_run["seconds"], "cpu": cpu_run["seconds"], "shared_card": shared["seconds"]},
+        "launches_card": card_run["launches"],
+    }
+
+    # capture --clip and rs_viewer --view --ply-dir: the PLY point counts
+    # of the card's run equal to the CPU's; the live loop records.
+    def ply_counts(directory):
+        counts = {}
+        for name in sorted(os.listdir(directory)):
+            with open(os.path.join(directory, name)) as f:
+                head = f.read(200)
+            counts[name] = int(re.search(r"element vertex (\d+)", head).group(1))
+        return counts
+
+    plys = {}
+    for device in ("cuda", "cpu"):
+        cap_dir, view_dir = os.path.join(tmp, f"cap-{device}"), os.path.join(tmp, f"view-{device}")
+        os.makedirs(cap_dir)
+        rc, _, err = _capture_main(capture.main, ["--clip", clip_path, "--frames", "2", "--out",
+                                                  os.path.join(cap_dir, "{:04d}.ply"), "--device", device])
+        check(rc == 0, f"capture on {device}: {err}")
+        rc, _, err = _capture_main(rs_viewer.main, ["--view", clip_path, "--ply-dir", view_dir, "--device", device])
+        check(rc == 0, f"rs_viewer --ply-dir on {device}: {err}")
+        plys[device] = {"capture": ply_counts(cap_dir), "viewer": ply_counts(view_dir)}
+    check(plys["cuda"] == plys["cpu"] and len(plys["cuda"]["capture"]) == len(plys["cuda"]["viewer"]) == 2,
+          f"capture/rs_viewer PLY counts: card {plys['cuda']}, CPU {plys['cpu']}")
+    live_clip, latest = os.path.join(tmp, "live.rsc"), os.path.join(tmp, "latest.png")
+    n_live = 8
+    rc, lines, err = _capture_main(rs_viewer.main, ["--loop", "--frames", str(n_live), "--record", live_clip,
+                                                    "--live-latest", latest])
+    check(rc == 0 and f"live loop: {n_live} frames shown" in lines, f"rs_viewer --loop: {rc} {lines} {err}")
+    with open(latest, "rb") as f:
+        check(f.read(8) == b"\x89PNG\r\n\x1a\n", "rs_viewer --live-latest: not a PNG")
+    check(len(recorded.read_clip(live_clip)) == n_live, "rs_viewer --loop --record: frame count")
+    emit("cli_tools", rs_align=align_row, ply_points=plys["cuda"], ply_equal_cpu=True,
+         live_loop={"frames": n_live, "recorded": n_live, "png_bytes": os.path.getsize(latest)}, card=card)
+    shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -2491,8 +2801,9 @@ def main() -> None:
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     check(bool(torch.isfinite(out.transform).all()), "bench workload: non-finite transforms")
+    timing_register_pairs_per_s = batch * n_iters / dt
     emit("timing_register", pairs=batch, chunk=chunk, iters=n_iters,
-         pairs_per_s=batch * n_iters / dt, seconds=dt,
+         pairs_per_s=timing_register_pairs_per_s, seconds=dt,
          peak_mem_GB=torch.cuda.max_memory_allocated() / 1e9, card=card)
 
     # The tie-stable k-NN: k_smallest (topk over value-bits|index keys)
@@ -2532,6 +2843,12 @@ def main() -> None:
     # ---- 24. replay: TUM and .rsc files through rs_replay ----------------
     replay_phase(types.SimpleNamespace(
         dev=dev, card=card, reset_counts=reset_counts, read_counts=read_counts, check_counts=check_counts,
+    ))
+
+    # ---- 25. cli: rs_benchmark, rs_streams, rs_align, capture, rs_viewer -
+    cli_phase(types.SimpleNamespace(
+        dev=dev, card=card, reset_counts=reset_counts, read_counts=read_counts, check_counts=check_counts,
+        timing_register_pairs_per_s=timing_register_pairs_per_s,
     ))
 
     for name, n in main_launches.items():

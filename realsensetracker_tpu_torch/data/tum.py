@@ -7,11 +7,12 @@ groundtruth.txt.
 
 Depth PNGs decode through the native thread-pooled decoder
 (native/src/png16.cpp) when the port's native library loads. Where the JAX
-package calls PIL (16-bit depth without the library, every RGB frame,
-and writing synthetic sequences), this module has its own numpy + zlib
-PNG codec: the reader takes 8- and 16-bit gray and 8-bit RGB,
-non-interlaced, with all five row filters; the writer writes 16-bit gray
-and 8-bit RGB with the Up filter.
+package calls PIL (depth the native decoder refuses, every RGB frame, and
+writing synthetic sequences), this module has its own numpy + zlib PNG
+codec: the reader takes every format PIL reads (gray at 1, 2, 4, 8 and 16
+bits, RGB at 8 and 16, palette at 1 to 8, gray+alpha and RGBA at 8 and
+16, each plain or Adam7-interlaced, all five row filters) and gives what
+PIL gives; the writer writes 16-bit gray and 8-bit RGB with the Up filter.
 """
 
 from __future__ import annotations
@@ -30,8 +31,12 @@ DEPTH_SCALE = 5000.0  # TUM convention: png_value / 5000 = meters
 # --- PNG codec (numpy + zlib) ---------------------------------------------
 
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
-# (bit depth, color type) -> channels: 8/16-bit gray, 8-bit RGB.
-_PNG_FORMATS = {(8, 0): 1, (16, 0): 1, (8, 2): 3}
+# color type -> (samples per pixel, the bit depths PIL reads it at):
+# gray, RGB, palette, gray+alpha, RGBA (PIL's PngImagePlugin._MODES).
+_PNG_FORMATS = {0: (1, (1, 2, 4, 8, 16)), 2: (3, (8, 16)), 3: (1, (1, 2, 4, 8)), 4: (2, (8, 16)),
+                6: (4, (8, 16))}
+# Adam7 passes: (x0, y0, dx, dy) of each pass's pixel lattice.
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
 
 
 def _png_chunks(data: bytes):
@@ -96,26 +101,80 @@ def _unfilter(raw: bytes, height: int, stride: int, bpp: int) -> np.ndarray:
     return out
 
 
+def _samples(rows: np.ndarray, depth: int, count: int) -> np.ndarray:
+    """(h, stride) scanlines -> (h, count) samples at their stored depth:
+    big-endian uint16 at 16 bits, uint8 otherwise (sub-byte samples packed
+    most significant bits first)."""
+    if depth == 16:
+        return rows.view(">u2")[:, :count].astype(np.uint16)
+    if depth == 8:
+        return rows[:, :count]
+    bits = np.unpackbits(rows, axis=1)[:, : count * depth].reshape(rows.shape[0], count, depth)
+    return (bits << np.arange(depth - 1, -1, -1, dtype=np.uint8)).sum(-1, dtype=np.uint8)
+
+
+def _decode_samples(raw: bytes, width: int, height: int, depth: int, channels: int, interlace: int) -> np.ndarray:
+    """Filtered image data -> (H, W, channels) samples; any nonzero
+    interlace method reads as Adam7, as PIL reads it."""
+    bpp = max(1, channels * depth // 8)
+    if not interlace:
+        stride = (width * channels * depth + 7) // 8
+        rows = _unfilter(raw, height, stride, bpp)
+        return _samples(rows, depth, width * channels).reshape(height, width, channels)
+    out = np.zeros((height, width, channels), np.uint16 if depth == 16 else np.uint8)
+    raw, pos = memoryview(raw), 0
+    for x0, y0, dx, dy in _ADAM7:
+        w, h = (width - x0 + dx - 1) // dx, (height - y0 + dy - 1) // dy
+        if w <= 0 or h <= 0:
+            continue  # an empty pass stores no scanlines at all
+        stride = (w * channels * depth + 7) // 8
+        rows = _unfilter(raw[pos:], h, stride, bpp)
+        pos += h * (stride + 1)
+        out[y0::dy, x0::dx] = _samples(rows, depth, w * channels).reshape(h, w, channels)
+    return out
+
+
 def decode_png(data: bytes) -> np.ndarray:
-    """PNG bytes -> (H, W) uint16 (16-bit gray), (H, W) uint8 (8-bit gray)
-    or (H, W, 3) uint8 (8-bit RGB). Raises ValueError on any other format."""
-    header, idat = None, []
+    """PNG bytes -> the image as PIL reads it. A gray file comes back
+    (H, W) in the dtype of ``np.asarray(Image.open(...))``: bool at 1 bit,
+    uint8 at 2, 4 and 8 bits (2- and 4-bit samples scaled to 0-255),
+    uint16 at 16 bits. Every other file comes back (H, W, 3) uint8, as
+    PIL's ``convert("RGB")`` gives it: the palette looked up (missing
+    entries black, tRNS ignored), alpha dropped, 16-bit samples cut to
+    their high byte. Raises ValueError on a format PIL does not read and
+    on damaged data."""
+    header, idat, plte = None, [], b""
     for kind, payload in _png_chunks(data):
         if kind == b"IHDR":
             header = struct.unpack(">IIBBBBB", payload)
+        elif kind == b"PLTE":
+            plte = payload
         elif kind == b"IDAT":
             idat.append(payload)
     if header is None:
         raise ValueError("PNG file without an IHDR chunk")
     width, height, depth, color, _compression, _filter, interlace = header
-    channels = _PNG_FORMATS.get((depth, color))
-    if channels is None or interlace != 0:
-        raise ValueError(f"unsupported PNG format: bit depth {depth}, color type {color}, interlace {interlace}")
-    bpp = channels * depth // 8
-    rows = _unfilter(zlib.decompress(b"".join(idat)), height, width * bpp, bpp)
+    channels, depths = _PNG_FORMATS.get(color, (0, ()))
+    if depth not in depths:
+        raise ValueError(f"unsupported PNG format: bit depth {depth}, color type {color}")
+    try:
+        raw = zlib.decompress(b"".join(idat))
+    except zlib.error as e:
+        raise ValueError(f"PNG image data does not inflate: {e}") from None
+    s = _decode_samples(raw, width, height, depth, channels, interlace)
+    if color == 0:
+        g = s[..., 0]
+        if depth == 1:
+            return g.astype(bool)
+        return g * np.uint8(255 // (2**depth - 1)) if depth in (2, 4) else g
+    if color == 3:
+        n = len(plte) // 3
+        palette = np.zeros((256, 3), np.uint8)
+        palette[: min(n, 256)] = np.frombuffer(plte, np.uint8, count=3 * n).reshape(n, 3)[:256]
+        return palette[s[..., 0]]
     if depth == 16:
-        return rows.view(">u2").astype(np.uint16).reshape(height, width)
-    return rows.reshape((height, width, 3) if channels == 3 else (height, width))
+        s = (s >> 8).astype(np.uint8)
+    return np.repeat(s[..., :1], 3, axis=-1) if color == 4 else np.ascontiguousarray(s[..., :3])
 
 
 def encode_png(image: np.ndarray) -> bytes:
@@ -337,14 +396,19 @@ class TumSequence:
 
 def load_depth_png_raw(path: str) -> np.ndarray:
     """16-bit depth PNG -> raw uint16 counts: the native decoder when the
-    library loads (the numpy one when it refuses the file), else numpy."""
+    library loads (the numpy one when it refuses the file), else numpy.
+    Any gray PNG reads as ``np.asarray(Image.open(path), dtype=np.uint16)``
+    does; a color one raises ValueError."""
     png_io = _native_png_io()
     if png_io is not None:
         try:
             return png_io.read_png16(path)
         except ValueError:
             pass
-    return read_png(path).astype(np.uint16, copy=False)
+    img = read_png(path)
+    if img.ndim != 2:
+        raise ValueError(f"{path}: a color PNG is not a depth frame")
+    return img.astype(np.uint16, copy=False)
 
 
 def load_depth_png(path: str) -> np.ndarray:
@@ -353,11 +417,15 @@ def load_depth_png(path: str) -> np.ndarray:
 
 
 def load_rgb_png(path: str) -> np.ndarray:
-    """8-bit RGB (or gray, replicated) PNG -> (H, W, 3) uint8 (TUM rgb/ frames)."""
+    """Any PNG -> (H, W, 3) uint8 (TUM rgb/ frames), as PIL's
+    ``convert("RGB")`` gives it: gray replicated (1 bit as 0/255, 16 bits
+    clipped at 255)."""
     img = read_png(path)
     if img.ndim == 2:
-        if img.dtype != np.uint8:
-            raise ValueError(f"{path}: a {img.dtype} gray PNG is not an RGB frame")
+        if img.dtype == bool:
+            img = img.astype(np.uint8) * np.uint8(255)
+        elif img.dtype == np.uint16:
+            img = np.minimum(img, 255).astype(np.uint8)
         img = np.repeat(img[..., None], 3, axis=-1)
     return img
 

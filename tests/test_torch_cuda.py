@@ -41,6 +41,10 @@ Host I/O: 64 u16 frames through FrameStream(prefetch=2), each read by the
 consumer's kernels behind a long matmul, equal to their host copies (the
 upload's event wait and record_stream); the native PNG decoder bit-equal
 to the numpy one; rs_replay on the card within 1e-4 of the CPU.
+
+The CLIs: rs_benchmark's projective-icp JSON line well formed and its
+transforms within 1e-4 of the CPU run; rs_streams' printed lines well
+formed and its final poses within 1e-4 of the CPU run.
 """
 
 import numpy as np
@@ -970,3 +974,74 @@ def test_rs_replay_on_cuda_matches_cpu(cuda, tmp_path):
         poses[d] = np.array([json.loads(ln)["pose"] for ln in out.getvalue().splitlines() if ln.startswith("{")])
     assert poses["cuda"].shape == (8, 16)
     np.testing.assert_allclose(poses["cuda"], poses["cpu"], rtol=0, atol=1e-4)
+
+
+def _cli(main, argv):
+    """main(argv) with its standard output captured: (rc, lines)."""
+    import contextlib
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = main(argv)
+    return rc, out.getvalue().splitlines()
+
+
+def test_rs_benchmark_on_cuda_matches_cpu(cuda, monkeypatch):
+    """rs_benchmark projective-icp at 80x60: one well-formed JSON line with
+    the JAX CLI's keys, and the transforms of every call within 1e-4 of the
+    same run on the CPU (register_batch wrapped to keep them)."""
+    import json
+
+    from realsensetracker_tpu_torch.cli import rs_benchmark
+
+    argv = ["--batch", "4", "--iters", "2", "--width", "80", "--height", "60", "--samples", "256",
+            "--level-iters", "2,2"]
+    got = {}
+    real = batched.register_batch
+    for d in ("cpu", "cuda"):
+        kept = []
+
+        def keep(*a, **k):
+            out = real(*a, **k)
+            kept.append(out.transform.cpu())
+            return out
+
+        monkeypatch.setattr(batched, "register_batch", keep)
+        rc, lines = _cli(rs_benchmark.main, argv + ["--device", d])
+        assert rc == 0 and len(lines) == 1
+        rec = json.loads(lines[0])
+        assert list(rec) == ["pipeline", "batch", "resolution", "pairs_per_sec_per_chip", "ms_per_batch"]
+        assert rec["pipeline"] == "projective-icp" and rec["resolution"] == "80x60" and rec["pairs_per_sec_per_chip"] > 0
+        got[d] = torch.stack(kept)
+    assert got["cuda"].shape == (3, 4, 4, 4)  # the warm-up and 2 timed calls
+    torch.testing.assert_close(got["cuda"], got["cpu"], rtol=0, atol=1e-4)
+
+
+def test_rs_streams_on_cuda_matches_cpu(cuda, monkeypatch):
+    """rs_streams, 2 streams x 3 frames at 80x60: the printed lines well
+    formed, every stream tracking, and the final poses within 1e-4 of the
+    same run on the CPU (step_streams wrapped to keep the state)."""
+    from realsensetracker_tpu_torch.cli import rs_streams
+    from realsensetracker_tpu_torch.parallel import streams
+
+    argv = ["--streams", "2", "--frames", "3", "--width", "80", "--height", "60"]
+    poses = {}
+    real = streams.step_streams
+    for d in ("cpu", "cuda"):
+        box = {}
+
+        def keep(*a, **k):
+            out = real(*a, **k)
+            box["state"] = out[0]
+            return out
+
+        monkeypatch.setattr(streams, "step_streams", keep)
+        rc, lines = _cli(rs_streams.main, argv + ["--device", d])
+        assert rc == 0
+        assert lines[0] == "rendering 2 x 3 synthetic frames ..."
+        assert lines[1:3] == ["frame 1: 2/2 streams tracking", "frame 2: 2/2 streams tracking"]
+        assert lines[3].startswith("2 streams x 2 steps in ") and "FPS/stream" in lines[3]
+        assert lines[4] in ("config-5 target 30 FPS/stream: MET", "config-5 target 30 FPS/stream: NOT MET")
+        poses[d] = box["state"].poses.cpu()
+    torch.testing.assert_close(poses["cuda"], poses["cpu"], rtol=0, atol=1e-4)

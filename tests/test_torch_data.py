@@ -10,7 +10,9 @@ both directions; the u16 millimeter quantization of a clip as in
 tests/test_rgbd.py:79 (5.1e-4 m); ground-truth poses, whose rotation the
 two packages rebuild from quaternions in their own f32 arithmetic, to
 1e-6. Each PNG row filter (0-4) is held on a crafted file at 16-bit gray
-and 8-bit RGB.
+and 8-bit RGB; every color type at every bit depth PIL reads, plain and
+Adam7-interlaced, reads bit for bit as JAX's PIL paths read it, and files
+PIL refuses raise.
 """
 
 import os
@@ -306,13 +308,150 @@ def test_png_decoder_rejects_bad_input(tmp_path):
     with pytest.raises(ValueError, match="CRC"):
         tum.decode_png(good[:20] + bytes([good[20] ^ 1]) + good[21:])
     with pytest.raises(ValueError, match="unsupported"):
-        tum.decode_png(_with_ihdr(good, depth=8, color=6))  # RGBA
+        tum.decode_png(_with_ihdr(good, depth=16, color=3))  # palette at 16 bits
 
 
 def _with_ihdr(png: bytes, depth: int, color: int) -> bytes:
     ihdr = struct.pack(">IIBBBBB", 4, 4, depth, color, 0, 0, 0)
     chunk = struct.pack(">I", 13) + b"IHDR" + ihdr + struct.pack(">I", zlib.crc32(b"IHDR" + ihdr))
     return png[:8] + chunk + png[8 + 25:]
+
+
+# --- every PNG format PIL reads (color type, bit depth, Adam7) -----------------------
+
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+_FORMATS = [(0, 1), (0, 2), (0, 4), (0, 8), (0, 16), (2, 8), (2, 16), (3, 1), (3, 2), (3, 4), (3, 8),
+            (4, 8), (4, 16), (6, 8), (6, 16)]
+
+
+def _pack(samples: np.ndarray, depth: int) -> np.ndarray:
+    """(h, n) samples -> (h, stride) scanline bytes, sub-byte samples
+    packed most significant bits first."""
+    if depth == 16:
+        return samples.astype(">u2").view(np.uint8).reshape(samples.shape[0], -1)
+    if depth == 8:
+        return samples.astype(np.uint8)
+    per = 8 // depth
+    s = np.pad(samples, ((0, 0), (0, -samples.shape[1] % per))).reshape(samples.shape[0], -1, per)
+    return (s << (8 - depth * (np.arange(per) + 1))).sum(-1).astype(np.uint8)
+
+
+def _filtered(rows: np.ndarray, bpp: int, rng) -> bytes:
+    """Scanlines with a random row filter (0-4) each, as an encoder may pick."""
+    rows = rows.astype(np.int64)
+    h, stride = rows.shape
+    up = np.vstack([np.zeros((1, stride), np.int64), rows[:-1]])
+    left = np.hstack([np.zeros((h, bpp), np.int64), rows[:, :-bpp]])
+    upleft = np.hstack([np.zeros((h, bpp), np.int64), up[:, :-bpp]])
+    preds = [np.zeros_like(rows), left, up, (left + up) // 2, _paeth(left, up, upleft)]
+    kinds = rng.integers(0, 5, h)
+    out = np.stack([np.concatenate([[k], (rows[y] - preds[k][y]) % 256]) for y, k in enumerate(kinds)])
+    return out.astype(np.uint8).tobytes()
+
+
+def _png_bytes(samples, depth, color, rng, interlace=0, plte=None, trns=None) -> bytes:
+    """A PNG of (H, W, C) samples written by hand (zlib + CRC), plain or
+    Adam7, with optional PLTE and tRNS chunks."""
+    h, w, c = samples.shape
+    bpp = max(1, c * depth // 8)
+    lattices = _ADAM7 if interlace else ((0, 0, 1, 1),)
+    raw = b"".join(_filtered(_pack(sub.reshape(sub.shape[0], -1), depth), bpp, rng)
+                   for sub in (samples[y0::dy, x0::dx] for x0, y0, dx, dy in lattices) if sub.size)
+
+    def chunk(kind, payload):
+        return struct.pack(">I", len(payload)) + kind + payload + struct.pack(">I", zlib.crc32(kind + payload))
+
+    out = b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, color, 0, 0, interlace))
+    out += chunk(b"PLTE", plte) if plte is not None else b""
+    out += chunk(b"tRNS", trns) if trns is not None else b""
+    return out + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b"")
+
+
+def _reads_like_jax(path, gray):
+    """The port's loaders against JAX's PIL paths, bit for bit (dtype too)."""
+    ref = jtum.load_rgb_png(path)
+    got = tum.load_rgb_png(path)
+    assert got.dtype == ref.dtype == np.uint8 and got.shape == ref.shape
+    np.testing.assert_array_equal(got, ref)
+    if gray:
+        ref = jtum.load_depth_png_raw(path)
+        got = tum.load_depth_png_raw(path)
+        assert got.dtype == ref.dtype == np.uint16
+        np.testing.assert_array_equal(got, ref)
+    else:
+        with pytest.raises(ValueError, match="not a depth frame"):
+            tum.load_depth_png_raw(path)
+
+
+@pytest.mark.parametrize("interlace", [0, 1], ids=["plain", "adam7"])
+@pytest.mark.parametrize("color,depth", _FORMATS, ids=[f"type{c}-{d}bit" for c, d in _FORMATS])
+def test_png_format_reads_like_jax(tmp_path, color, depth, interlace):
+    """Every color type at every bit depth PIL reads, plain and Adam7, on a
+    13x11 image (odd sizes leave Adam7 passes partial and sub-byte rows
+    padded), random row filters; the palette is short (missing entries
+    read black) and carries a tRNS chunk that convert("RGB") ignores."""
+    rng = np.random.default_rng(100 * color + depth + 7 * interlace)
+    samples = rng.integers(0, 2**depth, (13, 11, _CHANNELS[color]))
+    if color == 0 and depth == 16:
+        samples[0, :4, 0] = [0, 255, 256, 1000]  # around convert("RGB")'s clip
+    plte = trns = None
+    if color == 3:
+        n = max(1, 2**depth * 3 // 4)
+        plte = rng.integers(0, 256, 3 * n).astype(np.uint8).tobytes()
+        trns = bytes([0, 128])
+    path = str(tmp_path / "f.png")
+    with open(path, "wb") as f:
+        f.write(_png_bytes(samples, depth, color, rng, interlace, plte, trns))
+    _reads_like_jax(path, gray=color == 0)
+
+
+@pytest.mark.parametrize("mode", ["1", "L", "P", "LA", "RGBA", "I;16"])
+def test_pil_written_png_reads_like_jax(tmp_path, mode):
+    """Files PIL writes itself in each of its PNG modes (P with a
+    transparent index)."""
+    rng = np.random.default_rng(30)
+    if mode == "I;16":
+        img = Image.fromarray(rng.integers(0, 65536, (15, 19), dtype=np.uint16))
+    elif mode == "1":
+        img = Image.fromarray(rng.integers(0, 2, (15, 19), dtype=np.uint8) * 255).convert("1")
+    else:
+        img = Image.fromarray(rng.integers(0, 256, (15, 19, 3), dtype=np.uint8)).convert(mode)
+    path = str(tmp_path / "p.png")
+    img.save(path, **({"transparency": 3} if mode == "P" else {}))
+    assert Image.open(path).mode == mode
+    _reads_like_jax(path, gray=mode in ("1", "L", "I;16"))
+
+
+_BAD_HEADERS = {"palette-16bit": (16, 3), "rgb-4bit": (4, 2), "rgba-2bit": (2, 6), "color-type-5": (8, 5)}
+
+
+def _refused(case: str) -> bytes:
+    rng = np.random.default_rng(40)
+    good = _png_bytes(rng.integers(0, 256, (4, 4, 1)), 8, 0, rng)
+    if case in _BAD_HEADERS:
+        return _with_ihdr(good, *_BAD_HEADERS[case])
+    i = good.index(b"IDAT") - 4
+    (n,) = struct.unpack(">I", good[i:i + 4])
+    if case == "corrupt-stream":
+        return good[:i + 10] + bytes([good[i + 10] ^ 0xFF]) + good[i + 11:]
+    payload = zlib.compress(zlib.decompress(good[i + 8:i + 8 + n])[:-3])  # "truncated-data"
+    chunk = struct.pack(">I", len(payload)) + b"IDAT" + payload + struct.pack(">I", zlib.crc32(b"IDAT" + payload))
+    return good[:i] + chunk + good[i + 12 + n:]
+
+
+@pytest.mark.parametrize("case", ["palette-16bit", "rgb-4bit", "rgba-2bit", "color-type-5", "truncated-data",
+                                  "corrupt-stream"])
+def test_png_that_pil_refuses_raises(tmp_path, case):
+    path = str(tmp_path / "bad.png")
+    with open(path, "wb") as f:
+        f.write(_refused(case))
+    with pytest.raises(Exception):
+        jtum.load_rgb_png(path)
+    with pytest.raises(ValueError):
+        tum.load_rgb_png(path)
+    with pytest.raises(ValueError):
+        tum.load_depth_png_raw(path)
 
 
 # --- protobuf clouds ---------------------------------------------------------------
