@@ -98,7 +98,10 @@ need for JAX. Phases, one JSON line each:
                    system, no solve) against its plain version at B=512 and
                    B=1 on the four level shapes -- H and b within 1e-5 of
                    trace(H), ok_count equal, wsse and wsum within 1e-5
-                   relative, two launches bit-identical -- and timed;
+                   relative, two launches bit-identical -- and timed; the
+                   same bars with an association pose T_assoc an inner
+                   step from T (the point-sharded inner step), and
+                   T_assoc=T bit-identical to the entry without one;
                    ops.correspond.k_smallest (the tie-stable k-NN) against
                    a stable sort of each row at the k-NN shapes of GICP and
                    FPFH.
@@ -139,7 +142,10 @@ need for JAX. Phases, one JSON line each:
                    fused 640x480 frames into the default 128^3 x 4 cm
                    volume, full pass, slab window (integrate_slab=96) and
                    colored (tsdf, weight and color within 1e-6, the update
-                   masks identical), and csrc/tsdf_raycast.cu, raycast and
+                   masks identical), one x-slab of 32 planes from x0 = 64
+                   (a rank's slab of a sharded volume: within 1e-6 of its
+                   plain version and bit-identical to the whole volume's
+                   planes), and csrc/tsdf_raycast.cu, raycast and
                    raycast_coarse_to_fine(coarse=4) at 640x480 on the
                    fused volume (hit masks identical, depth within 1e-5
                    where both hit); times both against their plain versions
@@ -232,11 +238,27 @@ need for JAX. Phases, one JSON line each:
                    truth gaps printed; capture --clip and rs_viewer --view
                    --ply-dir with the PLY point counts of the CPU run;
                    rs_viewer --loop --record --live-latest (8 frames).
+  26. multidevice -- the multi-device layer on a world-size-1 NCCL group
+                   (a 1x1 mesh: one card, every collective run and each
+                   the identity) at 640x480 with the default config:
+                   register_batch_point_sharded and register_batch_sharded
+                   on 64 pairs within 1e-5 (twist) of register_batch, the
+                   first with rounds x inner_iters gn_system launches (the
+                   association pose set) and no gn_round; the sharded
+                   integrate of a frame into 128^3 and 512^3 bit-identical
+                   to the unsharded volume and its raycast through the slab
+                   gather within 1e-5; 8 producers x 30 u16 frames through
+                   BatchingConfig(mesh=...) within 1e-6 of the unsharded
+                   executor; optimize_atlas(mesh=...) on phase 17's atlas
+                   with its edges and trajectory; dryrun_multichip(1); the
+                   all-reduce's and the all-gathers' ms per call.
 
 Each main path (register, register_normal_space, tracker, keyframe,
 world_map, model, icp, gicp, align_pair, rgbd, pose_graph, slam, tsdf,
 tsdf_rgbd, submaps, serve_batched, serve_window, serve_rgbd, serve_tsdf,
-the replay runs a, c, d and e, and each CLI run of phase 25) runs with
+the replay runs a, c, d and e, each CLI run of phase 25, and phase 26's
+point-sharded and data-parallel registrations, sharded integrates and
+raycasts and sharded serving) runs with
 every launch count set to 0 just before it and read just after; a kernel
 the path runs must have launched there, and the cloud paths (model, icp,
 gicp, align_pair, rs_benchmark gicp and gnc-icp), which run no kernel of
@@ -258,6 +280,7 @@ import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 import types
 import warnings
@@ -622,7 +645,11 @@ def dense_phases(ctx) -> dict:
     surface extraction, and the submap atlas. ctx carries main()'s helpers
     (dev, card, reset_counts, read_counts, check_counts, bound, turns,
     time_ms, ate_of, twist_gap, trace_calls, intr: the camera). Returns the
-    two kernel rows' numbers for the kernels line."""
+    two kernel rows' numbers for the kernels line, and under "atlas" phase
+    17's loop atlas before its optimize_atlas with the edges and poses that
+    optimize gave."""
+    import copy
+
     import numpy as np
     import torch
 
@@ -705,6 +732,26 @@ def dense_phases(ctx) -> dict:
 
     vol, full_case = fuse_both(cfg, False)
     _, slab_case = fuse_both(cfg._replace(integrate_slab=96), False, atlas_depths[:10], atlas_poses[:10])
+
+    # One rank's x-slab of a sharded volume (mapping/sharded.py): planes
+    # 64..95 alone, from x0 = 64, by the kernel and by its plain version;
+    # the kernel's slab equals the whole-volume kernel's planes bit for bit.
+    x0, nx = 64, 32
+    sk = tsdf_mod.TsdfVolume(torch.ones((nx, 128, 128), device=dev), torch.zeros((nx, 128, 128), device=dev))
+    sp = tsdf_mod.clone_volume(sk)
+    for i in range(depths.shape[0]):
+        pcw_i = se3.inverse(poses[i])
+        tsdf_kernels.fuse_block(sk, depths[i], None, pcw_i, intr, cfg, x0=x0)
+        tsdf_kernels.fuse_block_reference(sp, depths[i], None, pcw_i, intr, cfg, x0=x0)
+    torch.cuda.synchronize()
+    x_gap = max((a - b).abs().max().item() for a, b in zip(sk, sp) if a is not None)
+    check(x_gap <= 1e-6 and torch.equal(sk.weight > 0, sp.weight > 0), f"tsdf_kernels: x-slab gap {x_gap}")
+    check(torch.equal(sk.tsdf, vol.tsdf[x0 : x0 + nx]) and torch.equal(sk.weight, vol.weight[x0 : x0 + nx]),
+          "tsdf_kernels: the x-slab differs from the whole volume's planes")
+    worst["integrate"] = max(worst["integrate"], x_gap)
+    x_slab_case = {"volume": cfg.resolution, "x0": x0, "planes": nx, "max_abs_err": x_gap,
+                   "bit_identical": all(torch.equal(a, b) for a, b in zip(sk, sp) if a is not None),
+                   "equals_whole_volume_planes": True, "observed_voxels": int((sk.weight > 0).sum())}
     check(slab_case["slab_fits"] > 0, "tsdf_kernels: the slab window never engaged")
     _, color_case = fuse_both(cfg, True)
 
@@ -788,7 +835,8 @@ def dense_phases(ctx) -> dict:
                    "raycast_plain_ms": rp5, "raycast_bound_ms": rb5, "raycast_bound_by": rb5_by,
                    "raycast_gathers": gathers5, "hits": int((out512 > 0).sum())}
     del vol512, field512
-    emit("tsdf_kernels", frame=[h, w], integrate_cases=[full_case, slab_case, color_case], raycast_cases=ray_cases,
+    emit("tsdf_kernels", frame=[h, w], integrate_cases=[full_case, slab_case, color_case, x_slab_case],
+         raycast_cases=ray_cases,
          timing=timing, card=card)
 
     # ---- 14. tsdf: Tracker(method="tsdf") at 640x480 (main path) ------------
@@ -949,6 +997,7 @@ def dense_phases(ctx) -> dict:
     for i in range(atlas_depths.shape[0]):
         loop_atlas.process(atlas_depths[i], float(i))
     pre = ctx.ate_of(loop_atlas.trajectory, atlas_poses)
+    atlas_before = copy.deepcopy(loop_atlas)  # phase multidevice repeats the optimize on a mesh
     t0 = time.perf_counter()
     loops = submaps_mod.optimize_atlas(loop_atlas)
     opt_ms = (time.perf_counter() - t0) * 1e3
@@ -966,6 +1015,7 @@ def dense_phases(ctx) -> dict:
                            "bound_by": ib_by},
         "tsdf_raycast": {"max_abs_err": worst["raycast"], "ms": rk, "plain_ms": rp, "bound_ms": rb,
                          "bound_by": rb_by, "gathers": gathers},
+        "atlas": {"before": atlas_before, "loops": loops, "poses": [np.array(T) for T in loop_atlas.trajectory.poses]},
     }
 
 
@@ -1870,6 +1920,225 @@ def cli_phase(ctx) -> None:
     shutil.rmtree(tmp, ignore_errors=True)
 
 
+def multidevice_phase(ctx) -> None:
+    """Phase 26, multidevice: the multi-device layer (parallel/mesh,
+    multihost, sharded, batched.register_batch_sharded, mapping/sharded,
+    BatchingConfig(mesh=...), optimize_atlas(mesh=...), parallel/dryrun) on
+    a world-size-1 NCCL group of this process: a 1x1 mesh, one card, every
+    collective run and each the identity. ctx carries main()'s helpers
+    (dev, card, reset_counts, read_counts, check_counts, time_ms) and
+    dense_phases' "atlas". One JSON line; any failed check raises."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from realsensetracker_tpu_torch.align import projective
+    from realsensetracker_tpu_torch.api.batching import BatchedExecutor, BatchingConfig
+    from realsensetracker_tpu_torch.data import synthetic
+    from realsensetracker_tpu_torch.geometry import camera, se3
+    from realsensetracker_tpu_torch.mapping import sharded as tsdf_sharded
+    from realsensetracker_tpu_torch.mapping import submaps as submaps_mod
+    from realsensetracker_tpu_torch.mapping import tsdf as tsdf_mod
+    from realsensetracker_tpu_torch.parallel import batched, multihost, sharded
+    from realsensetracker_tpu_torch.parallel import mesh as mesh_mod
+    from realsensetracker_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    dev, card = ctx.dev, ctx.card
+    t_phase = time.perf_counter()
+    mesh = mesh_mod.make_mesh()  # no group yet: a world-size-1 NCCL group over an in-memory store
+    try:
+        check(dist.get_backend() == "nccl" and dist.get_world_size() == 1, "multidevice: not one NCCL rank")
+        check(tuple(mesh.mesh.shape) == (1, 1) and mesh_mod.mesh_device(mesh) == dev, "multidevice: mesh")
+        multihost.all_processes_ready()
+        intr, cfg = camera.TUM_FR1, projective.ProjectiveIcpConfig()
+        levels, rounds = len(cfg.iters), sum(cfg.iters)
+
+        # -- registration: 64 pairs at 640x480, the default config ----------
+        n_pairs = 64
+        scene = synthetic.default_scene(seed=5, device=dev)
+        twists = 0.02 * torch.randn((n_pairs, 6), generator=torch.Generator().manual_seed(12))
+        rendered = [synthetic.render_pair(intr, tw, scene) for tw in twists]
+        src = torch.stack([r[1] for r in rendered])
+        dst = torch.stack([r[0] for r in rendered])
+        ref = batched.register_batch(src, dst, intr, cfg)
+        ctx.reset_counts()
+        T_pt, rmse_pt = sharded.register_batch_point_sharded(mesh, src, dst, intr, cfg)
+        pt_launches = ctx.read_counts()
+        ctx.check_counts(pt_launches, "multidevice point-sharded", levels, 0, 2, systems=rounds * cfg.inner_iters)
+        ctx.reset_counts()
+        res_dp = batched.register_batch_sharded(mesh, src, dst, intr, cfg)
+        dp_launches = ctx.read_counts()
+        ctx.check_counts(dp_launches, "multidevice data-parallel", levels, rounds, 2)
+
+        def gap(T):
+            return se3.log(se3.compose(se3.inverse(ref.transform), T)).abs().amax().item()
+
+        pt_gap, dp_gap = gap(T_pt), gap(res_dp.transform)
+        truth = torch.stack([r[2] for r in rendered])
+        truth_gap = se3.log(se3.compose(se3.inverse(truth), T_pt)).abs().amax().item()
+        check(bool(torch.isfinite(T_pt).all() and torch.isfinite(rmse_pt).all()), "multidevice: non-finite pose")
+        check(pt_gap <= 1e-5 and dp_gap <= 1e-5, f"multidevice: twist gaps {pt_gap}, {dp_gap} > 1e-5")
+        def host_ms(fn, reps=3):
+            out = []
+            for _ in range(reps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                out.append((time.perf_counter() - t0) * 1e3)
+            return statistics.median(out)
+
+        # Host ms per call in turns: plain, point-sharded, data-parallel, plain.
+        reg_ms = [host_ms(lambda: batched.register_batch(src, dst, intr, cfg)),
+                  host_ms(lambda: sharded.register_batch_point_sharded(mesh, src, dst, intr, cfg)),
+                  host_ms(lambda: batched.register_batch_sharded(mesh, src, dst, intr, cfg)),
+                  host_ms(lambda: batched.register_batch(src, dst, intr, cfg))]
+        def profiled(fn):
+            """Launches, host syncs, device-to-host copies and the device's
+            busy share of one call of fn, from a profiler trace."""
+            fn()
+            torch.cuda.synchronize()
+            acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+            with torch.profiler.profile(activities=acts) as prof:
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                wall_us = (time.perf_counter() - t0) * 1e6
+            events = prof.events()
+            device = sorted((e.time_range.start, e.time_range.end) for e in events
+                            if e.device_type == torch.autograd.DeviceType.CUDA)
+            busy, end = 0.0, float("-inf")
+            for a, b in device:
+                busy += max(0.0, b - max(a, end))
+                end = max(end, b)
+            return {"launches": sum(e.name.startswith("cudaLaunchKernel") for e in events),
+                    "syncs": sum("Synchronize" in e.name for e in events),
+                    "dtoh": sum("DtoH" in e.name or "Device -> Host" in e.name for e in events),
+                    "busy_share": busy / wall_us}
+
+        registration = {"pairs": n_pairs, "point_sharded_twist_gap": pt_gap, "data_parallel_twist_gap": dp_gap,
+                        "host_ms_per_call": {"register_batch": (reg_ms[0] + reg_ms[3]) / 2,
+                                             "point_sharded": reg_ms[1], "data_parallel": reg_ms[2]},
+                        "profiled": {"register_batch": profiled(lambda: batched.register_batch(src, dst, intr, cfg)),
+                                     "point_sharded": profiled(
+                                         lambda: sharded.register_batch_point_sharded(mesh, src, dst, intr, cfg))},
+                        "data_parallel_bit_identical": bool(torch.equal(res_dp.transform, ref.transform)),
+                        "truth_twist_gap": truth_gap, "launches_point_sharded": pt_launches,
+                        "launches_data_parallel": dp_launches}
+
+        # -- the collectives, timed: one inner step's all-reduce (64 pairs x
+        # 45 floats), and the slab gathers of the raycast below.
+        row = torch.zeros((n_pairs, 45), device=dev)
+        point_group = mesh.get_group("point")
+        allreduce_ms = ctx.time_ms(lambda: dist.all_reduce(row, group=point_group), 200)
+
+        # -- sharded TSDF: 128^3 x 4 cm and 512^3 x 1 cm (1 GB of tsdf+weight)
+        eye = se3.identity(device=dev)
+        depth = synthetic.render_depth(intr, eye, synthetic.default_scene(seed=0, device=dev))
+        tsdf_cases = []
+        for v in (128, 512):
+            vcfg = tsdf_mod.sized_config(resolution=v, voxel_size=5.12 / v)
+            vol = tsdf_sharded.init_volume_sharded(vcfg, mesh)
+            whole = tsdf_mod.init_volume(vcfg, device=dev)
+            ctx.reset_counts()
+            tsdf_sharded.integrate(vol, depth, eye, intr, vcfg)
+            ctx.check_counts(ctx.read_counts(), f"multidevice integrate {v}^3", 0, 0, 0, integrates=1)
+            tsdf_mod.integrate(whole, depth, eye, intr, vcfg)
+            local, x0 = tsdf_sharded.local_slab(vol)
+            check(x0 == 0 and torch.equal(local.tsdf, whole.tsdf) and torch.equal(local.weight, whole.weight),
+                  f"multidevice: sharded integrate at {v}^3 differs from the unsharded volume")
+            ctx.reset_counts()
+            r_sh = tsdf_sharded.raycast(vol, eye, intr, vcfg)
+            ctx.check_counts(ctx.read_counts(), f"multidevice raycast {v}^3", 0, 0, 0, raycasts=1)
+            r_ref = tsdf_mod.raycast(whole, eye, intr, vcfg)
+            torch.cuda.synchronize()
+            hit = r_ref > 0
+            r_gap = (r_sh - r_ref).abs().max().item()
+            check(torch.equal(r_sh > 0, hit) and r_gap <= 1e-5, f"multidevice: raycast at {v}^3 gap {r_gap}")
+            field_local = tsdf_mod.march_field(local)
+            gather_ms = ctx.time_ms(lambda f=field_local: mesh_mod.all_gather(f, mesh, "data"), 20)
+            tsdf_cases.append({"volume": v, "voxel_m": 5.12 / v, "observed_voxels": int((whole.weight > 0).sum()),
+                               "integrate_bit_identical": True, "raycast_max_abs_err": r_gap,
+                               "raycast_hits": int(hit.sum()), "gather_bytes": field_local.numel() * 4,
+                               "all_gather_ms": gather_ms,
+                               "all_gather_GBps": field_local.numel() * 4 / gather_ms / 1e6})
+            del vol, whole, local, field_local
+
+        # -- serving: 8 producers x 30 u16 640x480 frames, slots over the mesh
+        n_sessions, n_frames = 8, 30
+        walks = [synthetic.render_trajectory(intr, n_frames, seed=40 + i, device=dev)[0] for i in range(n_sessions)]
+        frames = [np.clip(w_.cpu().numpy() * 5000.0 + 0.5, 0, 65535).astype(np.uint16) for w_ in walks]
+
+        def serve(mesh_):
+            ex = BatchedExecutor(BatchingConfig(intrinsics=intr, capacity=n_sessions, depth_scale=2e-4, mesh=mesh_,
+                                                request_timeout_s=300.0))
+            try:
+                trackers = [ex.make_session_tracker() for _ in range(n_sessions)]
+                poses = np.zeros((n_sessions, n_frames, 4, 4), np.float32)
+                errors = []
+
+                def producer(i):
+                    try:
+                        for f in range(n_frames):
+                            poses[i, f] = trackers[i].process(frames[i][f], f / 30.0).pose
+                    except Exception as e:  # re-raised below on the main thread
+                        errors.append(e)
+
+                threads = [threading.Thread(target=producer, args=(i,)) for i in range(n_sessions)]
+                for th in threads:
+                    th.start()
+                for th in threads:
+                    th.join(timeout=300)
+                check(not errors and not any(th.is_alive() for th in threads), f"multidevice serving: {errors}")
+                return poses, ex.stats()
+            finally:
+                ex.close()
+
+        def timed_serve(mesh_):
+            t0 = time.perf_counter()
+            out = serve(mesh_)
+            return out + (n_sessions * n_frames / (time.perf_counter() - t0),)
+
+        # Frames/s in turns: unsharded, sharded (its launches counted),
+        # sharded, unsharded.
+        p_plain, _, fps_p1 = timed_serve(None)
+        ctx.reset_counts()
+        p_mesh, st_mesh, fps_m1 = timed_serve(mesh)
+        got = ctx.read_counts()
+        d_n = st_mesh["dispatches"]
+        ctx.check_counts(got, "multidevice serving", levels * (d_n + 1), rounds * d_n, d_n + 1)
+        check(st_mesh["errors"] == 0 and st_mesh["frames"] == n_sessions * n_frames, f"multidevice: {st_mesh}")
+        p_mesh2, _, fps_m2 = timed_serve(mesh)
+        _, _, fps_p2 = timed_serve(None)
+        serve_gap = float(max(np.abs(p_mesh - p_plain).max(), np.abs(p_mesh2 - p_plain).max()))
+        check(serve_gap <= 1e-6, f"multidevice: sharded executor poses {serve_gap} from the unsharded executor's")
+        serving = {"sessions": n_sessions, "frames": n_frames, "dispatches": d_n, "mean_batch": st_mesh["mean_batch"],
+                   "frames_per_s": [fps_m1, fps_m2], "unsharded_frames_per_s": [fps_p1, fps_p2],
+                   "pose_max_abs_diff_vs_unsharded": serve_gap, "launches": got}
+
+        # -- optimize_atlas(mesh=...) on phase 17's loop atlas ---------------
+        t0 = time.perf_counter()
+        loops = submaps_mod.optimize_atlas(ctx.atlas["before"], mesh=mesh)
+        atlas_ms = (time.perf_counter() - t0) * 1e3
+        atlas_gap = float(max(np.abs(np.asarray(a) - b).max()
+                              for a, b in zip(ctx.atlas["before"].trajectory.poses, ctx.atlas["poses"])))
+        check(loops == ctx.atlas["loops"] and atlas_gap <= 1e-6,
+              f"multidevice: optimize_atlas(mesh) {loops} edges (unsharded {ctx.atlas['loops']}), gap {atlas_gap}")
+        atlas = {"loops": loops, "trajectory_max_abs_diff_vs_unsharded": atlas_gap, "ms": atlas_ms}
+    finally:
+        dist.destroy_process_group()
+
+    # -- the dry run: its own rank process, its own NCCL group ---------------
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(1)
+    dry["wall_s"] = time.perf_counter() - t0
+    emit("multidevice", world_size=1, backend="nccl", mesh=[1, 1], registration=registration, tsdf=tsdf_cases,
+         serving=serving, optimize_atlas=atlas, dryrun=dry,
+         collectives={"all_reduce_ms": allreduce_ms, "all_reduce_bytes": row.numel() * 4,
+                      "all_gather_ms": {c["volume"]: c["all_gather_ms"] for c in tsdf_cases}},
+         phase_s=time.perf_counter() - t_phase, card=card)
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -2728,8 +2997,23 @@ def main() -> None:
          card=card)
 
     # gn_system: one association and the system at T, against its plain
-    # version (build_normal_equations' torch composition) at B=512 and B=1.
+    # version (build_normal_equations' torch composition) at B=512 and B=1;
+    # then with an association pose (the point-sharded inner step: planes
+    # fixed at T, the system at a pose an inner step away), and T_assoc=T
+    # bit-identical to the entry without one.
     sys_err = 0.0
+    inner_step = se3.exp(torch.tensor([0.003, -0.002, 0.004, 0.002, -0.001, 0.002], device=dev))
+
+    def system_gap(got, ref, what):
+        trace = ref[0].diagonal(dim1=-2, dim2=-1).sum(-1).clamp_min(1e-30)[:, None]
+        h_rel = ((got[0] - ref[0]).abs().flatten(1) / trace).max().item()
+        b_rel = ((got[1] - ref[1]).abs() / trace).max().item()
+        w_rel = max(((g - r).abs() / r.abs().clamp_min(1e-30)).max().item() for g, r in zip(got[2:4], ref[2:4]))
+        check(h_rel <= SYSTEM_BAR and b_rel <= SYSTEM_BAR, f"{what}: H {h_rel}, b {b_rel} of trace(H)")
+        check(torch.equal(got[4], ref[4]), f"{what}: ok_count differs")
+        check(w_rel <= SYSTEM_BAR, f"{what}: wsse / wsum {w_rel} relative")
+        err = max((got[0] - ref[0]).abs().max().item(), (got[1] - ref[1]).abs().max().item())
+        return {"h_of_trace": h_rel, "b_of_trace": b_rel, "wsse_wsum_rel": w_rel, "max_abs_err": err}
 
     def compare_system(T, pts, ok, packed, li):
         nonlocal sys_err
@@ -2743,16 +3027,18 @@ def main() -> None:
         if T.shape[0] > 1:
             alone = flat(gn_step.gn_system(T[1:2], pts[1:2], ok[1:2], packed[1:2], li, cfg))
             check(all(torch.equal(a[0], b[1]) for a, b in zip(alone, got)), f"{what}: pair 1 depends on B")
-        trace = ref[0].diagonal(dim1=-2, dim2=-1).sum(-1).clamp_min(1e-30)[:, None]
-        h_rel = ((got[0] - ref[0]).abs().flatten(1) / trace).max().item()
-        b_rel = ((got[1] - ref[1]).abs() / trace).max().item()
-        w_rel = max(((g - r).abs() / r.abs().clamp_min(1e-30)).max().item() for g, r in zip(got[2:4], ref[2:4]))
-        check(h_rel <= SYSTEM_BAR and b_rel <= SYSTEM_BAR, f"{what}: H {h_rel}, b {b_rel} of trace(H)")
-        check(torch.equal(got[4], ref[4]), f"{what}: ok_count differs")
-        check(w_rel <= SYSTEM_BAR, f"{what}: wsse / wsum {w_rel} relative")
-        err = max((got[0] - ref[0]).abs().max().item(), (got[1] - ref[1]).abs().max().item())
-        sys_err = max(sys_err, err)
-        return {"h_of_trace": h_rel, "b_of_trace": b_rel, "wsse_wsum_rel": w_rel, "max_abs_err": err}
+        row = system_gap(got, ref, what)
+        same = flat(gn_step.gn_system(T, pts, ok, packed, li, cfg, T_assoc=T.clone()))
+        check(all(torch.equal(a, b) for a, b in zip(got, same)), f"{what}: T_assoc=T differs from no T_assoc")
+        T_in = (inner_step @ T).contiguous()
+        got_a = flat(gn_step.gn_system(T_in, pts, ok, packed, li, cfg, T_assoc=T))
+        again_a = flat(gn_step.gn_system(T_in, pts, ok, packed, li, cfg, T_assoc=T))
+        ref_a = flat(gn_step.gn_system_reference(T_in, pts, ok, packed, li, cfg, T_assoc=T))
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(got_a, again_a)), f"{what} T_assoc: a second launch differs")
+        row["t_assoc"] = system_gap(got_a, ref_a, f"{what} T_assoc")
+        sys_err = max(sys_err, row["max_abs_err"], row["t_assoc"]["max_abs_err"])
+        return row
 
     def time_system(T, pts, ok, packed, li, reps_p, reps_k):
         """(row, bytes, operations): 64 B of pose and 180 B of system per
@@ -2833,6 +3119,7 @@ def main() -> None:
         bound=bound, turns=turns, time_ms=time_ms, ate_of=ate_of, twist_gap=twist_gap, trace_calls=trace_calls,
         intr=intr,
     ))
+    atlas_for_mesh = dense.pop("atlas")
 
     # ---- 18-23. serving: batched sessions, windows, RGB-D, dense, rs_serve -
     serving_phases(types.SimpleNamespace(
@@ -2849,6 +3136,12 @@ def main() -> None:
     cli_phase(types.SimpleNamespace(
         dev=dev, card=card, reset_counts=reset_counts, read_counts=read_counts, check_counts=check_counts,
         timing_register_pairs_per_s=timing_register_pairs_per_s,
+    ))
+
+    # ---- 26. multidevice: the sharded paths on one NCCL rank --------------
+    multidevice_phase(types.SimpleNamespace(
+        dev=dev, card=card, reset_counts=reset_counts, read_counts=read_counts, check_counts=check_counts,
+        time_ms=time_ms, atlas=atlas_for_mesh,
     ))
 
     for name, n in main_launches.items():

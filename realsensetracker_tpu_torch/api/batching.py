@@ -22,6 +22,15 @@ objective (align/rgbd.py) replaces depth-only ICP and sessions POST
 depth+color bodies; with ``tsdf=True`` every session owns a dense volume
 (KinectFusion's loop per slot).
 
+With ``BatchingConfig(mesh=...)`` the slot axis shards over the mesh's
+data ranks (JAX shards it over the mesh's devices): the executor runs on
+data rank 0, whose dispatcher stages and uploads a round as before, then
+broadcasts a header and scatters the staged inputs by slot block over the
+data group; every rank steps its own block of slots with the same masked
+step, and the stats rows all-gather back to rank 0, which keeps its one
+device-to-host copy. The other ranks run ``run_worker(config)``, a loop
+that steps what it receives until the executor closes.
+
 Usage (see cli/rs_serve.py ``--batched``):
 
     ex = BatchedExecutor(BatchingConfig(intrinsics=intr, capacity=8))
@@ -38,6 +47,7 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from realsensetracker_tpu_torch import device as device_mod
 from realsensetracker_tpu_torch.align import projective
@@ -45,6 +55,7 @@ from realsensetracker_tpu_torch.align import rgbd as rgbd_mod
 from realsensetracker_tpu_torch.api.service import host_array
 from realsensetracker_tpu_torch.data.depth_units import stage_depth_np, to_meters_np
 from realsensetracker_tpu_torch.geometry import camera
+from realsensetracker_tpu_torch.parallel import mesh as mesh_mod
 from realsensetracker_tpu_torch.parallel import streams
 from realsensetracker_tpu_torch.tracking.frame_to_frame import FrameResult
 from realsensetracker_tpu_torch.tracking.trajectory import Trajectory
@@ -59,6 +70,13 @@ class BatchingConfig:
     icp: projective.ProjectiveIcpConfig = projective.ProjectiveIcpConfig()
     capacity: int = 8  # max concurrent sessions (slots)
     min_inlier_fraction: float = 0.2
+    mesh: object = None  # parallel.mesh DeviceMesh | None: shard the slot
+    # axis over `data_axis` so serving capacity scales with devices (each
+    # data rank steps capacity/n_data slots; registrations are independent,
+    # so the step needs no collective beyond the inputs' scatter and the
+    # stats' gather). Capacity must be a multiple of the data size; the
+    # mesh's other dims must be 1.
+    data_axis: str = "data"
     linger_ms: float = 0.0  # wait this long after the first pending
     # request before dispatching, letting co-arriving requests coalesce
     # (0: the running dispatch itself is the batching window).
@@ -149,6 +167,16 @@ class BatchedExecutor:
             raise ValueError("tsdf_submap_radius requires tsdf slot mode")
         self.config = config
         self.device = device_mod.resolve(config.device)
+        self._link = None
+        if config.mesh is not None:
+            self._link = _SlotLink(config, self.device)
+            self.device = self._link.device  # this rank's card
+            if self._link.index != 0:
+                raise ValueError(
+                    f"the executor runs on data rank 0 of the mesh; this is data rank {self._link.index} "
+                    "(call run_worker(config) there)"
+                )
+        self._broken: BaseException | None = None  # a sharded round that failed part-way
         self._cond = threading.Condition()
         self._pending: dict[int, deque[_Request]] = {}
         self._free = list(range(config.capacity - 1, -1, -1))
@@ -179,6 +207,8 @@ class BatchedExecutor:
         with self._cond:
             if self._stop:
                 raise RuntimeError("executor is closed")
+            if self._broken is not None:
+                raise RuntimeError(f"sharded executor stopped after a failed round: {self._broken!r}")
             if not self._free:
                 raise RuntimeError(
                     f"batch capacity exhausted ({self.config.capacity} concurrent sessions); reset an idle "
@@ -288,52 +318,59 @@ class BatchedExecutor:
     def _run(self) -> None:
         while True:
             with self._cond:
-                while not self._stop and not any(self._pending.values()):
-                    self._cond.wait()
-                if self._stop:
-                    for q in self._pending.values():
-                        for req in q:
-                            req.error = RuntimeError("executor is closed")
-                            req.event.set()
-                    self._pending.clear()
-                    return
-                if self.config.linger_ms > 0:
-                    deadline = time.monotonic() + self.config.linger_ms / 1000.0
-                    while not self._stop:
-                        # Early out once EVERY active session has a frame
-                        # queued: the batch cannot get any fuller.
-                        if self._pending and all(self._pending.values()):
-                            break
-                        rem = deadline - time.monotonic()
-                        if rem <= 0:
-                            break
-                        self._cond.wait(timeout=rem)
-                    if self._stop:
-                        continue  # top of loop delivers shutdown errors
-                # One request per slot per round keeps per-session order.
-                # Single-frame and multi-frame (window) requests never share
-                # a round: a mixed round would run every slot through the
-                # window loop, coupling single-frame sessions' latency to the
-                # window length. When both kinds are pending, alternate.
-                heads = {slot: q[0] for slot, q in self._pending.items() if q}
-                singles = {s for s, r in heads.items() if len(r.depths) == 1}
-                multis = {s for s, r in heads.items() if len(r.depths) > 1}
-                if singles and multis:
-                    pick = singles if self._prefer_singles else multis
-                    self._prefer_singles = not self._prefer_singles
-                else:
-                    pick = singles or multis
-                batch = {slot: self._pending[slot].popleft() for slot in pick}
+                batch = self._next_round()
+            if batch is None:
+                if self._link is not None and self._broken is None:
+                    with self._on_device():
+                        self._link.stop()  # the workers' loops end
+                return
             if batch:
                 self._dispatch(batch)
 
-    def _blank_state(self):
-        cfg, s = self.config, self.config.capacity
-        if cfg.rgbd:
-            return streams.blank_streams_rgbd(cfg.intrinsics, cfg.rgbd_icp, num_streams=s, device=self.device)
-        if cfg.tsdf:
-            return streams.blank_tsdf_streams(cfg.intrinsics, cfg.tsdf_cfg, num_streams=s, device=self.device)
-        return streams.blank_streams(cfg.intrinsics, cfg.icp, num_streams=s, device=self.device)
+    def _next_round(self) -> dict[int, _Request] | None:
+        """Wait (holding _cond) for pending requests and take the next
+        round's batch: one request per slot. None once the executor closes
+        (every waiting request gets the shutdown error)."""
+        while not self._stop and not any(self._pending.values()):
+            self._cond.wait()
+        if self._stop:
+            for q in self._pending.values():
+                for req in q:
+                    req.error = RuntimeError("executor is closed")
+                    req.event.set()
+            self._pending.clear()
+            return None
+        if self.config.linger_ms > 0:
+            deadline = time.monotonic() + self.config.linger_ms / 1000.0
+            while not self._stop:
+                # Early out once EVERY active session has a frame
+                # queued: the batch cannot get any fuller.
+                if self._pending and all(self._pending.values()):
+                    break
+                rem = deadline - time.monotonic()
+                if rem <= 0:
+                    break
+                self._cond.wait(timeout=rem)
+            if self._stop:
+                return {}  # the next call delivers shutdown errors
+        # One request per slot per round keeps per-session order.
+        # Single-frame and multi-frame (window) requests never share
+        # a round: a mixed round would run every slot through the
+        # window loop, coupling single-frame sessions' latency to the
+        # window length. When both kinds are pending, alternate.
+        heads = {slot: q[0] for slot, q in self._pending.items() if q}
+        singles = {s for s, r in heads.items() if len(r.depths) == 1}
+        multis = {s for s, r in heads.items() if len(r.depths) > 1}
+        if singles and multis:
+            pick = singles if self._prefer_singles else multis
+            self._prefer_singles = not self._prefer_singles
+        else:
+            pick = singles or multis
+        return {slot: self._pending[slot].popleft() for slot in pick}
+
+    def _on_device(self):
+        """The dispatcher's device context: the card current on its thread."""
+        return torch.cuda.device(self.device) if self.device.type == "cuda" else contextlib.nullcontext()
 
     def _staging(self, shape, dtype) -> torch.Tensor:
         """A zeroed host buffer; pinned for a card, so that its upload is an
@@ -349,19 +386,15 @@ class BatchedExecutor:
         s = cfg.capacity
         h, w = int(cfg.intrinsics.height), int(cfg.intrinsics.width)
         n_frames = sum(len(req.depths) for req in batch.values())
-        on_card = self.device.type == "cuda"
         try:
-            with torch.cuda.device(self.device) if on_card else contextlib.nullcontext():
+            with self._on_device():
                 windowed = any(len(req.depths) > 1 for req in batch.values())
-                if self._state is None:
-                    self._state = self._blank_state()
                 # A round where EVERY request posted raw integer frames
                 # stages uint16 (half the upload; the step converts on the
                 # device). Mixed rounds stage f32, converting the integer
                 # requests on the host.
                 all_int = all(np.issubdtype(req.depths.dtype, np.integer) for req in batch.values())
                 ddtype = torch.uint16 if all_int else torch.float32
-                depth_scale = cfg.depth_scale if all_int else 1.0
 
                 def as_staged(d):
                     if all_int or not np.issubdtype(d.dtype, np.integer):
@@ -384,24 +417,22 @@ class BatchedExecutor:
                     f_np[1][first] = req.seed
                     if g_np is not None and req.grays is not None:
                         g_np[rows] = req.grays if windowed else req.grays[0]
-                depths_d, flags_d = self._upload(depths), self._upload(flags)
-                active, seed = flags_d[0], flags_d[1]
-                kw = dict(min_inlier_fraction=cfg.min_inlier_fraction, depth_scale=depth_scale)
-                if cfg.rgbd:
-                    step = streams.step_streams_masked_rgbd_window if windowed else streams.step_streams_masked_rgbd
-                    self._state, stats = step(self._state, depths_d, self._upload(grays), active, seed,
-                                              cfg.intrinsics, cfg.rgbd_icp, **kw)
-                elif cfg.tsdf:
-                    step = streams.step_tsdf_streams_masked_window if windowed else streams.step_tsdf_streams_masked
-                    self._state, stats = step(self._state, depths_d, active, seed, cfg.intrinsics, cfg.tsdf_cfg,
-                                              cfg.icp, **kw)
-                else:
-                    step = streams.step_streams_masked_window if windowed else streams.step_streams_masked
-                    self._state, stats = step(self._state, depths_d, active, seed, cfg.intrinsics, cfg.icp, **kw)
+                flags_d = self._upload(flags)
+                inputs = (self._upload(depths), None if grays is None else self._upload(grays), flags_d[0], flags_d[1])
+                if self._link is not None:  # this rank's slot block of each
+                    inputs = self._link.send(windowed, all_int, *inputs)
+                self._state, stats = _step_slots(cfg, self._state, windowed, all_int, *inputs)
+                if self._link is not None:
+                    stats = self._link.gather(stats)
                 rows = stats.cpu().numpy()  # the dispatch's ONE device-to-host copy
         except Exception as e:  # deliver to the round's requests; the dispatcher keeps serving
             with self._cond:
                 self._errors += 1
+                if self._link is not None:
+                    # The ranks may stand at different collectives now:
+                    # no further round can be trusted.
+                    self._broken = e
+                    self._stop = True
             for req in batch.values():
                 req.error = e
                 req.event.set()
@@ -437,6 +468,118 @@ class BatchedExecutor:
             self._stop = True
             self._cond.notify_all()
         self._thread.join(timeout=10.0)
+
+
+def _blank_slots(cfg: BatchingConfig, num_streams: int, device):
+    """A blank slot state of ``num_streams`` slots in the config's mode."""
+    if cfg.rgbd:
+        return streams.blank_streams_rgbd(cfg.intrinsics, cfg.rgbd_icp, num_streams=num_streams, device=device)
+    if cfg.tsdf:
+        return streams.blank_tsdf_streams(cfg.intrinsics, cfg.tsdf_cfg, num_streams=num_streams, device=device)
+    return streams.blank_streams(cfg.intrinsics, cfg.icp, num_streams=num_streams, device=device)
+
+
+def _step_slots(cfg: BatchingConfig, state, windowed: bool, all_int: bool, depths, grays, active, seed):
+    """One masked step of the slots whose inputs these are (every slot, or
+    one rank's block of a sharded executor); the state starts blank.
+    Returns (state, stats rows)."""
+    if state is None:
+        state = _blank_slots(cfg, depths.shape[0], depths.device)
+    kw = dict(min_inlier_fraction=cfg.min_inlier_fraction, depth_scale=cfg.depth_scale if all_int else 1.0)
+    if cfg.rgbd:
+        step = streams.step_streams_masked_rgbd_window if windowed else streams.step_streams_masked_rgbd
+        return step(state, depths, grays, active, seed, cfg.intrinsics, cfg.rgbd_icp, **kw)
+    if cfg.tsdf:
+        step = streams.step_tsdf_streams_masked_window if windowed else streams.step_tsdf_streams_masked
+        return step(state, depths, active, seed, cfg.intrinsics, cfg.tsdf_cfg, cfg.icp, **kw)
+    step = streams.step_streams_masked_window if windowed else streams.step_streams_masked
+    return step(state, depths, active, seed, cfg.intrinsics, cfg.icp, **kw)
+
+
+class _SlotLink:
+    """A sharded executor's traffic over the mesh's data group, one round
+    at a time: data rank 0 broadcasts a header [go, windowed, all-int] and
+    scatters each staged input by slot block; every rank steps its block;
+    the stats rows all-gather back. A header with go = 0 ends the workers'
+    loops. The inputs travel as their bytes (uint8): NCCL and gloo carry no
+    16-bit integers."""
+
+    def __init__(self, cfg: BatchingConfig, device: torch.device):
+        mesh, axis = cfg.mesh, cfg.data_axis
+        others = [n for n in mesh.mesh_dim_names if n != axis and mesh_mod.axis_size(mesh, n) > 1]
+        if others:
+            raise ValueError(f"the serving mesh shards slots over {axis!r} alone; its dims {others} must be 1")
+        if mesh_mod.mesh_device(mesh).type != device.type:
+            raise ValueError(f"BatchingConfig.device is {device}, the mesh's ranks are on {mesh.device_type}")
+        self.n = mesh_mod.axis_size(mesh, axis)
+        if cfg.capacity % self.n:
+            raise ValueError(
+                f"capacity ({cfg.capacity}) must be a multiple of the mesh '{axis}' axis size ({self.n}) "
+                "so slots shard evenly over devices"
+            )
+        self.cfg, self.mesh, self.axis = cfg, mesh, axis
+        self.index = mesh_mod.axis_index(mesh, axis)
+        self.group = mesh.get_group(axis)
+        self.root = dist.get_global_rank(self.group, 0)
+        self.device = mesh_mod.mesh_device(mesh)
+        self.slots = cfg.capacity // self.n
+
+    def _header(self, values=None) -> list[int]:
+        head = torch.tensor(values or [0, 0, 0], dtype=torch.int64, device=self.device)
+        dist.broadcast(head, src=self.root, group=self.group)
+        return values or head.tolist()
+
+    def _scatter(self, x: torch.Tensor | None, shape, dtype) -> torch.Tensor:
+        size = torch.empty((), dtype=dtype).element_size()
+        out = torch.empty(tuple(shape[:-1]) + (shape[-1] * size,), dtype=torch.uint8, device=self.device)
+        parts = None if x is None else [p.contiguous() for p in x.view(torch.uint8).chunk(self.n)]
+        dist.scatter(out, parts, src=self.root, group=self.group)
+        return out.view(dtype)
+
+    def _exchange(self, windowed: bool, all_int: bool, depths=None, grays=None, active=None, seed=None):
+        cfg = self.cfg
+        lead = (self.slots, cfg.window) if windowed else (self.slots,)
+        hw = (int(cfg.intrinsics.height), int(cfg.intrinsics.width))
+        d = self._scatter(depths, lead + hw, torch.uint16 if all_int else torch.float32)
+        g = self._scatter(grays, lead + hw, torch.float32) if cfg.rgbd else None
+        return d, g, self._scatter(active, lead, torch.bool), self._scatter(seed, lead, torch.bool)
+
+    def send(self, windowed: bool, all_int: bool, depths, grays, active, seed):
+        """Data rank 0: this round's header and inputs out; returns its own
+        block of each."""
+        self._header([1, int(windowed), int(all_int)])
+        return self._exchange(windowed, all_int, depths, grays, active, seed)
+
+    def receive(self):
+        """A worker: the next round's (windowed, all_int, depths, grays,
+        active, seed) for its block, or None when the executor closed."""
+        go, windowed, all_int = self._header()
+        if not go:
+            return None
+        return (bool(windowed), bool(all_int)) + self._exchange(bool(windowed), bool(all_int))
+
+    def gather(self, stats: torch.Tensor) -> torch.Tensor:
+        return mesh_mod.all_gather(stats, self.mesh, self.axis)
+
+    def stop(self) -> None:
+        self._header([0, 0, 0])
+
+
+def run_worker(config: BatchingConfig) -> None:
+    """The loop of a data rank other than 0 of a sharded executor: step
+    this rank's block of slots with every round rank 0 sends, until the
+    executor closes. Every rank passes the same config, its own mesh."""
+    if config.mesh is None:
+        raise ValueError("run_worker serves a sharded executor: BatchingConfig.mesh is None")
+    dev = device_mod.resolve(config.device)
+    link = _SlotLink(config, dev)
+    if link.index == 0:
+        raise ValueError("data rank 0 runs the BatchedExecutor itself, not run_worker")
+    state = None
+    with torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext():
+        while (msg := link.receive()) is not None:
+            state, stats = _step_slots(config, state, *msg)
+            link.gather(stats)
 
 
 class BatchedSessionTracker:

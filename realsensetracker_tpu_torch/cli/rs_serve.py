@@ -12,6 +12,7 @@ exposes Prometheus counters/latency quantiles.
 Usage:
   python -m realsensetracker_tpu_torch.cli.rs_serve --method keyframe --port 8080
   python -m realsensetracker_tpu_torch.cli.rs_serve --batched --batch-capacity 8
+  python -m realsensetracker_tpu_torch.cli.rs_serve --batched --batch-mesh 4  # slots over 4 cards
   # then from any producer:
   #   from realsensetracker_tpu_torch.api.service import post_frame
   #   post_frame("http://host:8080", depth_f32_hw, ts)
@@ -20,7 +21,14 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import os
+import tempfile
 import time
+from datetime import timedelta
+
+# Worker ranks of --batch-mesh wait on rank 0's next round while the
+# service idles, so their group waits this long before a collective fails.
+MESH_IDLE_TIMEOUT = timedelta(days=7)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -85,6 +93,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="wait this long for co-arriving requests before "
                         "dispatching a batch (0: the dispatch itself is "
                         "the batching window)")
+    p.add_argument("--batch-mesh", type=int, default=0,
+                   help="shard the --batched slot axis over this many "
+                        "devices (0 = single device); capacity must be a "
+                        "multiple of it. Starts the other ranks itself: one "
+                        "process per card (NCCL), or gloo ranks with "
+                        "--device cpu")
     p.add_argument("--depth-scale", type=float, default=1e-3,
                    help="meters per raw unit for INTEGER depth frames "
                         "(clients may POST raw uint16 at half the f32 "
@@ -102,17 +116,104 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def main(argv=None) -> int:
-    args = build_parser().parse_args(argv)
-    from realsensetracker_tpu_torch.api.service import TrackingService
+def _intrinsics(args):
     from realsensetracker_tpu_torch.geometry import camera
 
-    intr = camera.Intrinsics(
+    return camera.Intrinsics(
         fx=args.fx or args.width * 0.8,
         fy=args.fy or args.fx or args.width * 0.8,
         cx=(args.width - 1) / 2, cy=(args.height - 1) / 2,
         width=args.width, height=args.height,
     )
+
+
+def _tsdf_config(args):
+    from realsensetracker_tpu_torch.mapping.tsdf import sized_config
+
+    tsdf_cfg = sized_config(args.tsdf_resolution, args.tsdf_voxel)
+    if args.tsdf_track_scale:
+        tsdf_cfg = tsdf_cfg._replace(track_scale=args.tsdf_track_scale)
+    if args.tsdf_integrate_every > 1:
+        tsdf_cfg = tsdf_cfg._replace(integrate_every=args.tsdf_integrate_every)
+    if args.tsdf_integrate_slab:
+        tsdf_cfg = tsdf_cfg._replace(integrate_slab=args.tsdf_integrate_slab)
+    return tsdf_cfg
+
+
+def _batching_config(args, tsdf_cfg, mesh=None):
+    from realsensetracker_tpu_torch.api.batching import BatchingConfig
+
+    return BatchingConfig(
+        intrinsics=_intrinsics(args),
+        capacity=args.batch_capacity,
+        linger_ms=args.batch_linger_ms,
+        mesh=mesh,
+        window=args.batch_window,
+        rgbd=args.method == "rgbd",
+        tsdf=args.method == "tsdf",
+        tsdf_cfg=tsdf_cfg,
+        tsdf_submap_radius=args.tsdf_submap_radius,
+        depth_scale=args.depth_scale,
+        device=args.device,
+    )
+
+
+def _join_mesh(args, rank: int, store_path: str):
+    """Join the --batch-mesh group as ``rank`` and build the slot mesh."""
+    import torch.distributed as dist
+
+    from realsensetracker_tpu_torch import device as device_mod
+    from realsensetracker_tpu_torch.parallel.mesh import make_mesh
+
+    n = args.batch_mesh
+    backend = "nccl" if device_mod.resolve(args.device).type == "cuda" else "gloo"
+    dist.init_process_group(backend, store=dist.FileStore(store_path, n), rank=rank, world_size=n,
+                            timeout=MESH_IDLE_TIMEOUT)
+    return make_mesh(n, device=args.device)
+
+
+def _mesh_worker(args, rank: int, store_path: str, tsdf_cfg) -> None:
+    """A worker rank of --batch-mesh: step its block of slots until rank 0's
+    executor closes."""
+    import torch.distributed as dist
+
+    from realsensetracker_tpu_torch.api.batching import run_worker
+
+    mesh = _join_mesh(args, rank, store_path)
+    try:
+        run_worker(_batching_config(args, tsdf_cfg, mesh))
+    finally:
+        dist.destroy_process_group()
+
+
+def _start_mesh_workers(args, tsdf_cfg):
+    """Spawn ranks 1 .. N-1 of --batch-mesh N; returns (their processes,
+    the group's store path)."""
+    import torch
+    import torch.multiprocessing as mp
+
+    from realsensetracker_tpu_torch import device as device_mod
+
+    n = args.batch_mesh
+    if device_mod.resolve(args.device).type == "cuda" and torch.cuda.device_count() < n:
+        raise ValueError(
+            f"--batch-mesh {n} needs {n} cards, this host has {torch.cuda.device_count()} "
+            "(--device cpu runs gloo ranks on the CPU)"
+        )
+    store_path = os.path.join(tempfile.mkdtemp(prefix="rs-serve-mesh-"), "store")
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_mesh_worker, args=(args, r, store_path, tsdf_cfg), daemon=True)
+             for r in range(1, n)]
+    for p in procs:
+        p.start()
+    return procs, store_path
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    from realsensetracker_tpu_torch.api.service import TrackingService
+
+    intr = _intrinsics(args)
 
     if args.tsdf_submap_radius and not (args.batched
                                         and args.method == "tsdf"):
@@ -132,19 +233,7 @@ def main(argv=None) -> int:
                   "--method tsdf",
                   file=sys.stderr)
             return 1
-        from realsensetracker_tpu_torch.mapping.tsdf import sized_config
-
-        tsdf_cfg = sized_config(args.tsdf_resolution, args.tsdf_voxel)
-        if args.tsdf_track_scale:
-            tsdf_cfg = tsdf_cfg._replace(track_scale=args.tsdf_track_scale)
-        if args.tsdf_integrate_every > 1:
-            tsdf_cfg = tsdf_cfg._replace(
-                integrate_every=args.tsdf_integrate_every
-            )
-        if args.tsdf_integrate_slab:
-            tsdf_cfg = tsdf_cfg._replace(
-                integrate_slab=args.tsdf_integrate_slab
-            )
+        tsdf_cfg = _tsdf_config(args)
 
     def make_tracker():
         if args.method == "slam":
@@ -166,24 +255,15 @@ def main(argv=None) -> int:
 
     executor = None
     extra_status = None
+    workers = []
     if args.batched:
-        from realsensetracker_tpu_torch.api.batching import (
-            BatchedExecutor,
-            BatchingConfig,
-        )
+        from realsensetracker_tpu_torch.api.batching import BatchedExecutor
 
-        executor = BatchedExecutor(BatchingConfig(
-            intrinsics=intr,
-            capacity=args.batch_capacity,
-            linger_ms=args.batch_linger_ms,
-            window=args.batch_window,
-            rgbd=args.method == "rgbd",
-            tsdf=args.method == "tsdf",
-            tsdf_cfg=tsdf_cfg,
-            tsdf_submap_radius=args.tsdf_submap_radius,
-            depth_scale=args.depth_scale,
-            device=args.device,
-        ))
+        batch_mesh = None
+        if args.batch_mesh:
+            workers, store_path = _start_mesh_workers(args, tsdf_cfg)
+            batch_mesh = _join_mesh(args, 0, store_path)
+        executor = BatchedExecutor(_batching_config(args, tsdf_cfg, batch_mesh))
         make_tracker = executor.make_session_tracker
         extra_status = executor.stats
 
@@ -211,7 +291,16 @@ def main(argv=None) -> int:
     finally:
         svc.close()
         if executor is not None:
-            executor.close()
+            executor.close()  # a sharded executor's close ends the workers' loops
+        for w in workers:
+            w.join(timeout=60)
+        if workers:
+            import shutil
+
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+            shutil.rmtree(os.path.dirname(store_path), ignore_errors=True)
     print(f"served {svc.status()['frames']} frames")
     return 0
 

@@ -6,7 +6,11 @@
 //                the 6x6 system itself (H, b, wsse, wsum, count), for
 //                callers that add their own terms before the solve (the
 //                joint RGB-D step of align/rgbd.py adds the photometric
-//                block).
+//                block, the point-sharded registration of
+//                parallel/sharded.py an all-reduce over its point ranks).
+//                With T_assoc it associates at T_assoc and reduces at T:
+//                the inner step of a round whose planes were fixed at the
+//                round's pose (realsensetracker_tpu/parallel/sharded.py:154-168).
 //
 // The TPU never had this kernel: its Pallas version stopped at Mosaic
 // lowering blockers, kept as minimal reproducers in
@@ -35,9 +39,10 @@
 //      geometry/se3.py.
 // It writes the new poses (B,4,4) and the last step's rmse =
 // sqrt(wsse / (wsum + 1e-12)), inlier fraction = count / P and count.
-// gn_system stops after the first reduction of step 2 (at T itself) and
-// writes the 30 sums as H (B,6,6, the upper triangle mirrored), b (B,6),
-// wsse, wsum (B,) and count (B,) int32.
+// gn_system stops after the first reduction of step 2 (at T itself, the
+// association at T_assoc where given) and writes the 30 sums as H (B,6,6,
+// the upper triangle mirrored), b (B,6), wsse, wsum (B,) and count (B,)
+// int32.
 //
 // Bound: latency and launches, not the card. A pair reads 13 bytes per
 // point, 16 more per valid point's plane row, and 64 bytes of pose, and
@@ -113,6 +118,7 @@ constexpr int kUpper = 21;
 
 struct Params {
   const float* T;
+  const float* T_assoc;  // gn_system: the association pose (null: T)
   const float* pts;
   const uint8_t* src_ok;
   const float* packed;
@@ -530,9 +536,10 @@ __global__ void __launch_bounds__(kThreads) gn_system_kernel(const Params prm) {
   for (int q = 0; q < 32; ++q) acc[q] = 0.f;
   {
     const Pose T = load_pose(prm.T + pair * 16);
+    const Pose A = prm.T_assoc == nullptr ? T : load_pose(prm.T_assoc + pair * 16);
     for (int i = static_cast<int>(rank) * kThreads + tid; i < prm.p; i += c * kThreads) {
       float x, y, z, nx, ny, nz, d, px, py, pz;
-      if (associate(prm, pair, T, i, x, y, z, nx, ny, nz, d)) {
+      if (associate(prm, pair, A, i, x, y, z, nx, ny, nz, d)) {
         transform(T, x, y, z, px, py, pz);
         accumulate(acc, px, py, pz, nx, ny, nz, d, prm.dist_threshold, prm.gnc_mu);
       }
@@ -613,11 +620,12 @@ extern "C" int rst_gn_round(const float* T, const float* pts, const uint8_t* src
   return static_cast<int>(cudaGetLastError());
 }
 
-// The 6x6 Gauss-Newton systems of b pairs at the poses T (one association,
-// one reduction), launched on `stream`: H (b,6,6), bvec (b,6), wsse, wsum
-// (b,) f32 and count (b,) int32. Returns cudaGetLastError() as an int;
-// cudaErrorInvalidValue for p < 0.
-extern "C" int rst_gn_system(const float* T, const float* pts, const uint8_t* src_ok,
+// The 6x6 Gauss-Newton systems of b pairs at the poses T (one association
+// at T_assoc, or at T where T_assoc is null; one reduction at T), launched
+// on `stream`: H (b,6,6), bvec (b,6), wsse, wsum (b,) f32 and count (b,)
+// int32. Returns cudaGetLastError() as an int; cudaErrorInvalidValue for
+// p < 0.
+extern "C" int rst_gn_system(const float* T, const float* T_assoc, const float* pts, const uint8_t* src_ok,
                              const float* packed, int b, int p, int h, int w, float fx, float fy,
                              float cx, float cy, float min_depth, float dist_threshold,
                              float gnc_mu, float* H, float* bvec, float* wsse, float* wsum,
@@ -625,7 +633,7 @@ extern "C" int rst_gn_system(const float* T, const float* pts, const uint8_t* sr
   if (p < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (b > 0) {
     Params prm = {};
-    prm.T = T, prm.pts = pts, prm.src_ok = src_ok, prm.packed = packed;
+    prm.T = T, prm.T_assoc = T_assoc, prm.pts = pts, prm.src_ok = src_ok, prm.packed = packed;
     prm.p = p, prm.h = h, prm.w = w, prm.clusters = cluster_size(p), prm.inner_iters = 1;
     prm.fx = fx, prm.fy = fy, prm.cx = cx, prm.cy = cy, prm.min_depth = min_depth;
     prm.dist_threshold = dist_threshold, prm.gnc_mu = gnc_mu;

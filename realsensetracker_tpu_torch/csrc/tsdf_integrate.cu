@@ -15,6 +15,12 @@
 //   / max(w + 1, 1), w <- min(w + 1, max_weight); color likewise over
 //   |sdf| <= trunc.
 //
+// Slab storage: the arrays may hold an x-slab of the grid, nx planes from
+// global x0 ((nx, V, V), the layout of mapping/sharded.py, one slab per
+// rank); x0 = 0, nx = V is the whole volume. A voxel's centre comes from
+// its GLOBAL index x0 + ix, so a slab rounds every voxel as the whole
+// volume does and the slabs together are bit-identical to it.
+//
 // Gates, read from device memory so that no frame waits on the host:
 // `gate` (the tracker's failure hold and integrate_every cadence), and the
 // slab window `start` (3 ints) with its `fits` flag (TsdfConfig.
@@ -46,6 +52,7 @@ constexpr int kThreads = 256;
 
 struct Params {
   int v, h, w, slab;
+  int x0, nx;
   float fx, fy, cx, cy;
   float ox, oy, oz, vs;
   float trunc, inv_trunc, min_depth, max_depth, max_weight;
@@ -60,13 +67,13 @@ integrate_kernel(float* __restrict__ tsdf, float* __restrict__ weight, float* __
                  float* __restrict__ color_weight, const float* __restrict__ depth,
                  const float* __restrict__ rgb, const float* __restrict__ pose, const bool* gate,
                  const int* start, const bool* fits, Params p) {
-  const int n = p.v * p.v * p.v;
+  const int n = p.nx * p.v * p.v;
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= n) return;
   if (gate != nullptr && !*gate) return;
   const int iz = idx % p.v;
   const int iy = (idx / p.v) % p.v;
-  const int ix = idx / (p.v * p.v);
+  const int ix = p.x0 + idx / (p.v * p.v);  // global x of the slab's plane
   if (start != nullptr && *fits) {
     const int sx = start[0], sy = start[1], sz = start[2];
     if (ix < sx || ix >= sx + p.slab || iy < sy || iy >= sy + p.slab || iz < sz || iz >= sz + p.slab) return;
@@ -112,26 +119,28 @@ integrate_kernel(float* __restrict__ tsdf, float* __restrict__ weight, float* __
 
 }  // namespace
 
-// Launches one integration on `stream` (a cudaStream_t) and returns
+// Launches one integration of the slab of planes x0 .. x0 + nx - 1 of a V^3
+// grid (arrays (nx, V, V)) on `stream` (a cudaStream_t) and returns
 // cudaGetLastError() as an int: 0 when the launch was accepted. color,
 // color_weight and rgb are all null (depth-only volume) or all set; gate may
 // be null (open); start and fits are both null (whole volume) or both set.
-// Returns cudaErrorInvalidValue, launching nothing, for V outside 1..1290 or
-// an empty frame.
+// Returns cudaErrorInvalidValue, launching nothing, for V outside 1..1290,
+// a slab outside the grid or an empty frame.
 extern "C" int rst_tsdf_integrate(float* tsdf, float* weight, float* color, float* color_weight,
                                   const float* depth, const float* rgb, const float* pose_cam_from_world,
                                   const bool* gate, const int* start, const bool* fits,
-                                  int v, int h, int w, int slab,
+                                  int v, int x0, int nx, int h, int w, int slab,
                                   float fx, float fy, float cx, float cy,
                                   float ox, float oy, float oz, float vs,
                                   float trunc, float inv_trunc, float min_depth, float max_depth, float max_weight,
                                   void* stream) {
-  if (v < 1 || v > 1290 || h < 1 || w < 1 || ((color == nullptr) != (rgb == nullptr)) ||
-      ((start == nullptr) != (fits == nullptr))) {
+  if (v < 1 || v > 1290 || x0 < 0 || nx < 1 || x0 + nx > v || h < 1 || w < 1 ||
+      ((color == nullptr) != (rgb == nullptr)) || ((start == nullptr) != (fits == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const Params p{v, h, w, slab, fx, fy, cx, cy, ox, oy, oz, vs, trunc, inv_trunc, min_depth, max_depth, max_weight};
-  const int n = v * v * v;
+  const Params p{v, h, w, slab, x0, nx, fx, fy, cx, cy, ox, oy, oz, vs,
+                 trunc, inv_trunc, min_depth, max_depth, max_weight};
+  const int n = nx * v * v;
   const int blocks = (n + kThreads - 1) / kThreads;
   integrate_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       tsdf, weight, color, color_weight, depth, rgb, pose_cam_from_world, gate, start, fits, p);

@@ -452,11 +452,16 @@ def tsdf_stream_state_from_jax(state, device=device_mod.DEFAULT) -> TsdfStreamSt
     return TsdfStreamState(volume=volume, **_slot_fields(state, device))
 
 
-def batching_config_from_jax(cfg, device=device_mod.DEFAULT) -> BatchingConfig:
-    """A JAX BatchingConfig as the port's. A sharded one (mesh set) has no
-    counterpart on one device and raises."""
-    if getattr(cfg, "mesh", None) is not None:
-        raise ValueError("a BatchingConfig with a mesh shards the slot axis over devices; the port serves one device")
+def batching_config_from_jax(cfg, device=device_mod.DEFAULT, mesh=None) -> BatchingConfig:
+    """A JAX BatchingConfig as the port's. A sharded one (JAX mesh set)
+    needs the port's own mesh (parallel.mesh.make_mesh) in ``mesh``: a JAX
+    Mesh of devices cannot be carried into torch ranks, so without one it
+    raises. The data axis carries over."""
+    if getattr(cfg, "mesh", None) is not None and mesh is None:
+        raise ValueError(
+            "a BatchingConfig with a JAX mesh shards the slot axis over devices: pass the port's mesh "
+            "(parallel.mesh.make_mesh) as mesh="
+        )
     return BatchingConfig(
         intrinsics=intrinsics_from_jax(cfg.intrinsics),
         icp=icp_config_from_jax(cfg.icp),
@@ -472,4 +477,6 @@ def batching_config_from_jax(cfg, device=device_mod.DEFAULT) -> BatchingConfig:
         tsdf_submap_radius=float(cfg.tsdf_submap_radius),
         depth_scale=float(cfg.depth_scale),
         device=str(device),
+        mesh=mesh,
+        data_axis=str(cfg.data_axis),
     )

@@ -5,8 +5,11 @@ its plain torch version ``gn_round_reference`` is the port's
 associate_planes_t, then inner_iters x (normal_equations_fixed_t ->
 solve_update). ``gn_system``: one association and the 6x6 system at the
 poses T, unsolved, for the joint RGB-D step that adds its photometric block
-before the solve; its plain version ``gn_system_reference`` is
-associate_planes_t -> normal_equations_fixed_t. Both launch the CUDA
+before the solve and for the point-sharded registration that all-reduces
+it over its point ranks first (there the association runs at the round's
+pose ``T_assoc`` and the reduction at the inner step's T); its plain
+version ``gn_system_reference`` is associate_planes_t ->
+normal_equations_fixed_t. Both launch the CUDA
 kernels of ``csrc/gn_step.cu`` for CUDA tensors and run the plain version
 for CPU tensors. There is no fallback: a CUDA tensor either goes through a
 kernel or raises. The TPU had no such kernel -- Mosaic could not lower the
@@ -47,7 +50,7 @@ def _library() -> ctypes.CDLL:
         ]
         lib.rst_gn_round.restype = i32
         lib.rst_gn_system.argtypes = [
-            ptr, ptr, ptr, ptr, i32, i32, i32, i32,
+            ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32,
             f32, f32, f32, f32, f32, f32, f32,
             ptr, ptr, ptr, ptr, ptr, ptr,
         ]
@@ -75,15 +78,16 @@ def gn_round_reference(T, src_pts_t, src_ok, packed, intr: camera.Intrinsics, cf
     return T, stats
 
 
-def gn_system_reference(T, src_pts_t, src_ok, packed, intr: camera.Intrinsics, cfg):
-    """Plain torch version of gn_system: the association at the poses T,
-    then the gated GNC system against those planes at the same T. Returns
-    (H (B,6,6), b (B,6), (wsse (B,), wsum (B,), ok_count (B,) int32))."""
+def gn_system_reference(T, src_pts_t, src_ok, packed, intr: camera.Intrinsics, cfg, T_assoc=None):
+    """Plain torch version of gn_system: the association at the poses
+    T_assoc (None: T), then the gated GNC system against those planes at T.
+    Returns (H (B,6,6), b (B,6), (wsse (B,), wsum (B,), ok_count (B,) int32))."""
     from realsensetracker_tpu_torch.align import projective
     from realsensetracker_tpu_torch.ops.pyramid import PyramidLevel
 
     level = PyramidLevel(None, None, None, None, packed)  # association reads only the table
-    n_t, d_plane, ok = projective.associate_planes_t(T, src_pts_t, src_ok, level, intr, cfg)
+    at = T if T_assoc is None else T_assoc
+    n_t, d_plane, ok = projective.associate_planes_t(at, src_pts_t, src_ok, level, intr, cfg)
     return projective.normal_equations_fixed_t(T, src_pts_t, n_t, d_plane, ok, cfg)
 
 
@@ -154,11 +158,12 @@ def gn_round(T, src_pts_t, src_ok, packed, intr: camera.Intrinsics, cfg):
     return T_new, (rmse, frac, count)
 
 
-def gn_system(T, src_pts_t, src_ok, packed, intr: camera.Intrinsics, cfg):
+def gn_system(T, src_pts_t, src_ok, packed, intr: camera.Intrinsics, cfg, T_assoc=None):
     """The 6x6 Gauss-Newton systems at poses T (B,4,4) of lane-major points
     src_pts_t (B,3,P) against the plane tables packed (B,4,H,W): one
-    association at T, then the gated, GNC-weighted reduction at T. cfg
-    supplies min_depth, dist_threshold and gnc_mu.
+    association at T_assoc (B,4,4) (None: at T), then the gated,
+    GNC-weighted reduction at T. cfg supplies min_depth, dist_threshold
+    and gnc_mu.
 
     Returns (H (B,6,6), b (B,6), (wsse (B,), wsum (B,), ok_count (B,)
     int32)), as projective.normal_equations_fixed_t. CUDA tensors launch
@@ -166,8 +171,10 @@ def gn_system(T, src_pts_t, src_ok, packed, intr: camera.Intrinsics, cfg):
     tensors run gn_system_reference.
     """
     b, p, dev = _check_inputs(T, src_pts_t, src_ok, packed, intr)
+    if T_assoc is not None:
+        _require("T_assoc", T_assoc, (b, 4, 4), torch.float32, dev)
     if dev.type == "cpu":
-        return gn_system_reference(T, src_pts_t, src_ok, packed, intr, cfg)
+        return gn_system_reference(T, src_pts_t, src_ok, packed, intr, cfg, T_assoc)
     H = torch.empty((b, 6, 6), dtype=torch.float32, device=dev)
     bvec = torch.empty((b, 6), dtype=torch.float32, device=dev)
     wsse = torch.empty((b,), dtype=torch.float32, device=dev)
@@ -178,7 +185,8 @@ def gn_system(T, src_pts_t, src_ok, packed, intr: camera.Intrinsics, cfg):
     lib = _library()
     with torch.cuda.device(dev):
         err = lib.rst_gn_system(
-            T.data_ptr(), src_pts_t.data_ptr(), src_ok.data_ptr(), packed.data_ptr(),
+            T.data_ptr(), None if T_assoc is None else T_assoc.data_ptr(),
+            src_pts_t.data_ptr(), src_ok.data_ptr(), packed.data_ptr(),
             b, p, intr.height, intr.width, intr.fx, intr.fy, intr.cx, intr.cy,
             cfg.min_depth, cfg.dist_threshold, cfg.gnc_mu,
             H.data_ptr(), bvec.data_ptr(), wsse.data_ptr(), wsum.data_ptr(), count.data_ptr(),

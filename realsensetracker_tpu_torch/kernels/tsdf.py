@@ -12,7 +12,10 @@ dozen V^3 temporaries per integrate.
   failure hold and integrate_every cadence), the slab window's ``fits``
   flag and its ``start`` -- and a thread outside the active region exits
   before touching memory, so the slab and the full pass give the same
-  volume and no frame waits on the host. The volume updates in place.
+  volume and no frame waits on the host. The volume updates in place. Its
+  arrays may hold an x-slab of the grid, (nx, V, V) from global plane
+  ``x0`` (mapping/sharded.py's layout); voxel centres come from the global
+  index, so slabs round as the whole volume does.
 * ``march`` launches csrc/tsdf_raycast.cu: one thread per ray marches the
   field from its z_start for n_steps, stops at the first crossing (JAX's
   fixed trip count latches ``found`` and never moves the hit after it),
@@ -58,7 +61,7 @@ def _library(source: str) -> ctypes.CDLL:
                 ptr, ptr, ptr, ptr,  # tsdf, weight, color, color_weight (in place)
                 ptr, ptr, ptr,  # depth (H, W), color frame (H, W, 3), pose_cam_from_world (4, 4)
                 ptr, ptr, ptr,  # gate, start (3,), fits: device, nullable
-                i32, i32, i32, i32,  # V, H, W, slab edge S
+                i32, i32, i32, i32, i32, i32,  # V, slab x0 and nx, H, W, window edge S
                 f, f, f, f,  # fx, fy, cx, cy
                 f, f, f, f,  # origin, voxel size
                 f, f, f, f, f,  # trunc, 1/trunc, min_depth, max_depth, max_weight
@@ -105,13 +108,15 @@ def _check(name: str, t: torch.Tensor, shape: tuple, dtype, dev: torch.device) -
 # ---- integrate --------------------------------------------------------------
 
 
-def active_region(v: int, gate, start, fits, size: int, device) -> torch.Tensor | None:
-    """The (V, V, V) bool mask of the voxels the gates open (None: all):
-    ``gate`` and, where the slab ``fits``, the window start..start+size."""
+def active_region(v: int, gate, start, fits, size: int, device, x0: int, nx: int):
+    """The (nx, V, V) bool mask of the voxels of planes x0 .. x0+nx-1 that
+    the gates open (None: all): ``gate`` and, where the window ``fits``,
+    the window start..start+size."""
     active = None
     if start is not None:
         idx = torch.arange(v, device=device)
-        inside = [(idx >= start[a]) & (idx < start[a] + size) for a in range(3)]
+        lines = (idx[x0 : x0 + nx], idx, idx)
+        inside = [(lines[a] >= start[a]) & (lines[a] < start[a] + size) for a in range(3)]
         in_slab = inside[0][:, None, None] & inside[1][None, :, None] & inside[2][None, None, :]
         active = in_slab | ~fits
     if gate is not None:
@@ -120,13 +125,15 @@ def active_region(v: int, gate, start, fits, size: int, device) -> torch.Tensor 
 
 
 def fuse_block_reference(vol, depth, color, pose_cam_from_world, intr: camera.Intrinsics, cfg,
-                         gate=None, start=None, fits=None) -> None:
-    """Plain torch version: mapping/tsdf._fuse_block over the whole volume,
-    then copied into ``vol`` where the gates open (torch.where)."""
+                         gate=None, start=None, fits=None, x0: int = 0) -> None:
+    """Plain torch version: mapping/tsdf._fuse_block over the volume's
+    planes (from global plane ``x0``), then copied into ``vol`` where the
+    gates open (torch.where)."""
     from realsensetracker_tpu_torch.mapping.tsdf import _fuse_block
 
-    new = _fuse_block(tuple(vol), depth, color, pose_cam_from_world, intr, cfg)
-    active = active_region(cfg.resolution, gate, start, fits, int(cfg.integrate_slab), vol.tsdf.device)
+    nx = vol.tsdf.shape[0]
+    new = _fuse_block(tuple(vol), depth, color, pose_cam_from_world, intr, cfg, x0=x0)
+    active = active_region(cfg.resolution, gate, start, fits, int(cfg.integrate_slab), vol.tsdf.device, x0, nx)
     for arr, upd in zip(vol, new):
         if arr is None:
             continue
@@ -136,9 +143,11 @@ def fuse_block_reference(vol, depth, color, pose_cam_from_world, intr: camera.In
 
 
 def fuse_block(vol, depth, color, pose_cam_from_world, intr: camera.Intrinsics, cfg,
-               gate=None, start=None, fits=None) -> None:
+               gate=None, start=None, fits=None, x0: int = 0) -> None:
     """Fuse ``depth`` (H, W) f32 (and ``color`` (H, W, 3) f32 on a colored
     volume) into ``vol`` in place, seen from ``pose_cam_from_world`` (4, 4).
+    ``vol``'s arrays hold planes x0 .. x0+nx-1 of the V^3 grid ((nx, V, V);
+    x0 = 0, nx = V: the whole volume).
     ``gate`` () bool, ``start`` (3,) int32 and ``fits`` () bool are device
     tensors (None: open; start and fits come together, for the slab window
     of edge cfg.integrate_slab). CUDA tensors launch the kernel on the
@@ -146,20 +155,23 @@ def fuse_block(vol, depth, color, pose_cam_from_world, intr: camera.Intrinsics, 
     fuse_block_reference."""
     dev = vol.tsdf.device
     v = cfg.resolution
+    nx = vol.tsdf.shape[0]
     h, w = depth.shape
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {dev}")
     if (start is None) != (fits is None):
         raise ValueError("start and fits come together")
+    if not (0 <= x0 and nx >= 1 and x0 + nx <= v):
+        raise ValueError(f"slab of {nx} planes from x0={x0} lies outside a grid of {v}")
     if dev.type == "cpu":
-        return fuse_block_reference(vol, depth, color, pose_cam_from_world, intr, cfg, gate, start, fits)
+        return fuse_block_reference(vol, depth, color, pose_cam_from_world, intr, cfg, gate, start, fits, x0)
     if v > MAX_RESOLUTION:
         raise ValueError(f"resolution {v} > {MAX_RESOLUTION}")
     for name, t in (("tsdf", vol.tsdf), ("weight", vol.weight)):
-        _check(name, t, (v, v, v), torch.float32, dev)
+        _check(name, t, (nx, v, v), torch.float32, dev)
     if vol.color is not None:
-        _check("color", vol.color, (v, v, v, 3), torch.float32, dev)
-        _check("color_weight", vol.color_weight, (v, v, v), torch.float32, dev)
+        _check("color", vol.color, (nx, v, v, 3), torch.float32, dev)
+        _check("color_weight", vol.color_weight, (nx, v, v), torch.float32, dev)
         _check("color frame", color, (h, w, 3), torch.float32, dev)
     _check("depth", depth, (h, w), torch.float32, dev)
     _check("pose", pose_cam_from_world, (4, 4), torch.float32, dev)
@@ -177,7 +189,7 @@ def fuse_block(vol, depth, color, pose_cam_from_world, intr: camera.Intrinsics, 
             vol.tsdf.data_ptr(), vol.weight.data_ptr(), _ptr(vol.color), _ptr(vol.color_weight),
             depth.data_ptr(), _ptr(color), pose_cam_from_world.data_ptr(),
             _ptr(gate), _ptr(start), _ptr(fits),
-            v, h, w, int(cfg.integrate_slab),
+            v, int(x0), nx, h, w, int(cfg.integrate_slab),
             f32(intr.fx), f32(intr.fy), f32(intr.cx), f32(intr.cy),
             f32(o[0]), f32(o[1]), f32(o[2]), f32(cfg.voxel_size),
             f32(cfg.trunc), f32(1.0 / cfg.trunc), f32(cfg.min_depth), f32(cfg.max_depth), f32(cfg.max_weight),

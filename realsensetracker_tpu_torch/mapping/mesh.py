@@ -165,9 +165,11 @@ def extract_mesh(vol: tsdf_mod.TsdfVolume, cfg: tsdf_mod.TsdfConfig = tsdf_mod.T
     0), normals face free space, and above ``capacity`` crossings the
     compaction keeps a spatially uniform subsample
     (ops.cloud.subsample_to_capacity). ``with_color`` interpolates the fused
-    RGB onto each vertex (colored volumes)."""
+    RGB onto each vertex (colored volumes). A sharded volume's planes are
+    gathered first (tsdf.whole)."""
     if with_color and vol.color is None:
         raise ValueError("extract_mesh(with_color=True) needs a colored volume (init_volume(with_color=True))")
+    vol = tsdf_mod.whole(vol)
     parts = [tsdf_mod._compact_to_capacity(*_tet_candidates(vol, cfg, t, with_color), capacity) for t in range(6)]
     merged = tsdf_mod._compact_to_capacity(torch.cat([p.points for p in parts]),
                                            torch.cat([p.mask for p in parts]), capacity)

@@ -423,13 +423,45 @@ class SubmapTsdfTracker:
 # -- atlas-level loop closure + pose-graph optimization -----------------------------
 
 
-def _verify_submap_pairs(surfs, feats, pairs, *, noise_bound, overlap_tau, min_overlap, refine_iters):
+def _verify_submap_pairs(surfs, feats, pairs, *, noise_bound, overlap_tau, min_overlap, refine_iters,
+                         mesh=None, mesh_axis: str = "data"):
     """Geometric verification of candidate submap pairs (the keyframe
     loop-closure recipe): robust global registration of surface j onto
     surface i, symmetric-overlap acceptance, and an ICP refinement kept only
     when it does not lose overlap. Returns (T (P, 4, 4) i_from_j, ok (P,),
     overlap (P,)) on the device; JAX vmaps the same per-pair function over
-    a padded pair axis."""
+    a padded pair axis.
+
+    With ``mesh`` the pair axis pads as JAX's does (a power of two, at
+    least 4, then a multiple of the mesh's device count) and splits over
+    ``mesh_axis``: each rank verifies its block (the surfaces are
+    replicated: every rank passes the same), the padding rows stay inert
+    (identity, not ok, overlap 0) without being verified, and one
+    all-gather returns every row to every rank."""
+    if mesh is None:
+        return _verify_pairs(surfs, feats, pairs, noise_bound, overlap_tau, min_overlap, refine_iters)
+    from realsensetracker_tpu_torch.parallel import mesh as mesh_mod
+
+    n_pairs = len(pairs)
+    cap = max(4, 1 << (n_pairs - 1).bit_length())
+    n_dev = mesh.size()
+    cap = max(cap, n_dev)
+    if cap % n_dev:
+        cap = ((cap + n_dev - 1) // n_dev) * n_dev
+    mine = mesh_mod.block(cap, mesh, mesh_axis, "pair axis")
+    real = [pairs[k] for k in range(mine.start, min(mine.stop, n_pairs))]
+    dev = mesh_mod.mesh_device(mesh)
+    rows = torch.zeros((mine.stop - mine.start, 18), dtype=torch.float32, device=dev)
+    rows[:, :16] = torch.eye(4, dtype=torch.float32, device=dev).reshape(16)
+    if real:
+        T, ok, ov = _verify_pairs(surfs, feats, real, noise_bound, overlap_tau, min_overlap, refine_iters)
+        rows[: len(real)] = torch.cat([T.reshape(-1, 16), ok[:, None].to(torch.float32), ov[:, None]], dim=1).to(dev)
+    rows = mesh_mod.all_gather(rows, mesh, mesh_axis)[:n_pairs]
+    return rows[:, :16].reshape(-1, 4, 4), rows[:, 16] > 0.5, rows[:, 17]
+
+
+def _verify_pairs(surfs, feats, pairs, noise_bound, overlap_tau, min_overlap, refine_iters):
+    """The verification of each of ``pairs`` in turn, on one device."""
     from realsensetracker_tpu_torch.align import icp as icp_mod
     from realsensetracker_tpu_torch.align import robust_global
 
@@ -516,13 +548,10 @@ def optimize_atlas(
     anchors make the whole dense model consistent at once, and each
     submap's trajectory span is rewritten by its anchor correction.
 
-    ``mesh`` (sharding the pair verification over devices) belongs to the
-    multi-device item of the port and raises NotImplementedError."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "optimize_atlas(mesh=...) shards the pair verification over devices: ROADMAP queue 1 item 12 "
-            "(multi-device), not ported yet"
-        )
+    ``mesh`` (a parallel.mesh DeviceMesh) shards the pair verification over
+    its ``mesh_axis`` ranks (_verify_submap_pairs); every rank calls
+    optimize_atlas on its own copy of the same atlas and ends with the same
+    anchors."""
     from realsensetracker_tpu_torch.ops import fpfh as fpfh_mod
     from realsensetracker_tpu_torch.optimize import pose_graph as pg
 
@@ -568,7 +597,7 @@ def optimize_atlas(
 
     T, ok, ov = _verify_submap_pairs(
         surfs, feats, [(slot[i], slot[j]) for i, j in pairs], noise_bound=noise_bound,
-        overlap_tau=overlap_tau, min_overlap=min_overlap, refine_iters=refine_iters,
+        overlap_tau=overlap_tau, min_overlap=min_overlap, refine_iters=refine_iters, mesh=mesh, mesh_axis=mesh_axis,
     )
     T, ok, ov = T.cpu().numpy(), ok.cpu().numpy(), ov.cpu().numpy()
     # Confidence-weighted edges: the edge error falls sharply with overlap.

@@ -143,27 +143,31 @@ def fma(a, b, c) -> torch.Tensor:
     return (_f64(a) * _f64(b) + _f64(c)).float()
 
 
-def _grid_lines(cfg: TsdfConfig, device) -> tuple[torch.Tensor, ...]:
-    """World coordinate of every voxel centre along each axis, (V,) each:
+def _grid_lines(cfg: TsdfConfig, device, x0: int = 0, nx: int | None = None) -> tuple[torch.Tensor, ...]:
+    """World coordinate of every voxel centre along each axis, (V,) each
+    (x: the nx planes from global plane x0; nx None: V):
     origin + (idx + 0.5) * voxel_size, in the form compiled JAX's integrate
     takes on the CPU (XLA contracts the x and y lines into fused
     multiply-adds and computes the z line, its vectorized inner loop, in
     two roundings; measured at V = 48). The slab path reads the same lines,
-    so a voxel's coordinate never depends on the window it is updated in."""
+    so a voxel's coordinate never depends on the window it is updated in,
+    nor the x line on the slab that holds it."""
     idx = torch.arange(cfg.resolution, dtype=torch.float32, device=device) + 0.5
     vs = f32(cfg.voxel_size)
     ox, oy, oz = (f32(o) for o in cfg.origin)
-    return fma(idx, vs, ox), fma(idx, vs, oy), oz + idx * vs
+    xs = idx[x0 : x0 + (cfg.resolution if nx is None else nx)]
+    return fma(xs, vs, ox), fma(idx, vs, oy), oz + idx * vs
 
 
-def _grid_cam_coords(pose_cam_from_world: torch.Tensor, cfg: TsdfConfig):
-    """Camera-frame coordinates of every voxel centre as three (V, V, V)
-    tensors: cam_a = ((R_a0 wx + R_a1 wy) + R_a2 wz) + t_a, affine per axis,
+def _grid_cam_coords(pose_cam_from_world: torch.Tensor, cfg: TsdfConfig, x0: int = 0, nx: int | None = None):
+    """Camera-frame coordinates of every voxel centre (of the nx planes from
+    global plane x0) as three (nx, V, V) tensors:
+    cam_a = ((R_a0 wx + R_a1 wy) + R_a2 wz) + t_a, affine per axis,
     assembled from broadcast (V,) lines; the y product is contracted onto
     the x product, as compiled JAX computes it on the CPU."""
     R = pose_cam_from_world[:3, :3].to(torch.float32)
     t = pose_cam_from_world[:3, 3].to(torch.float32)
-    wx, wy, wz = _grid_lines(cfg, pose_cam_from_world.device)
+    wx, wy, wz = _grid_lines(cfg, pose_cam_from_world.device, x0, nx)
     wx, wy, wz = wx[:, None, None], wy[None, :, None], wz[None, None, :]
     return tuple((fma(R[a, 1], wy, R[a, 0] * wx) + R[a, 2] * wz) + t[a] for a in range(3))
 
@@ -171,14 +175,15 @@ def _grid_cam_coords(pose_cam_from_world: torch.Tensor, cfg: TsdfConfig):
 # ---- integrate ------------------------------------------------------------
 
 
-def _fuse_block(block, depth, color, pose_cam_from_world, intr: camera.Intrinsics, cfg: TsdfConfig):
+def _fuse_block(block, depth, color, pose_cam_from_world, intr: camera.Intrinsics, cfg: TsdfConfig, x0: int = 0):
     """Plain torch version of the KinectFusion running-average update of
-    the whole volume (JAX _fuse_block): returns the updated (tsdf, weight,
-    color, color_weight) tensors. Voxels in front of or at most trunc behind
-    the observed surface update; deeper ones keep their state."""
+    the whole volume (JAX _fuse_block), or of the x-slab ``block`` holds
+    from global plane ``x0``: returns the updated (tsdf, weight, color,
+    color_weight) tensors. Voxels in front of or at most trunc behind the
+    observed surface update; deeper ones keep their state."""
     tsdf_b, weight_b, color_b, cw_b = block
     h, w = depth.shape
-    cx_, cy_, cz_ = _grid_cam_coords(pose_cam_from_world, cfg)
+    cx_, cy_, cz_ = _grid_cam_coords(pose_cam_from_world, cfg, x0, tsdf_b.shape[0])
     z_safe = torch.where(cz_ > 1e-6, cz_, f32(1e-6))
     u = intr.fx * cx_ / z_safe + intr.cx
     v_ = intr.fy * cy_ / z_safe + intr.cy
@@ -264,7 +269,19 @@ def integrate(vol: TsdfVolume, depth: torch.Tensor, pose_world_from_cam: torch.T
     only the S^3 window over the frame's update support updates, which
     gives the same volume as the whole pass (voxels outside it cannot meet
     the update predicate); the window's rounding margin is checked here
-    (slab_bound_ok) and a configuration it does not cover raises."""
+    (slab_bound_ok) and a configuration it does not cover raises. A volume
+    sharded in x-slabs (mapping/sharded.py) goes to sharded.integrate."""
+    from realsensetracker_tpu_torch.mapping import sharded
+
+    if sharded.is_sharded(vol):
+        return sharded.integrate(vol, depth, pose_world_from_cam, intr, cfg, color=color, gate=gate)
+    _integrate_planes(vol, depth, pose_world_from_cam, intr, cfg, color, gate, 0)
+    return vol
+
+
+def _integrate_planes(vol, depth, pose_world_from_cam, intr, cfg, color, gate, x0: int) -> None:
+    """integrate on the planes x0 .. x0+nx-1 that ``vol``'s tensors hold
+    (the whole volume, or one rank's slab of a sharded one)."""
     from realsensetracker_tpu_torch.kernels import tsdf as tsdf_kernels
 
     if (vol.color is not None) != (color is not None):
@@ -286,8 +303,7 @@ def integrate(vol: TsdfVolume, depth: torch.Tensor, pose_world_from_cam: torch.T
                 f"fy={intr.fy}; lower max_depth, raise voxel_size or set integrate_slab=0"
             )
         start, fits = slab_window(depth, pose_world_from_cam, intr, cfg)
-    tsdf_kernels.fuse_block(vol, depth, color, pose_cfw, intr, cfg, gate=gate, start=start, fits=fits)
-    return vol
+    tsdf_kernels.fuse_block(vol, depth, color, pose_cfw, intr, cfg, gate=gate, start=start, fits=fits, x0=x0)
 
 
 # ---- raycast --------------------------------------------------------------
@@ -309,7 +325,12 @@ UNOBSERVED = 2.0  # march-field value of weight == 0 voxels: observed values lie
 
 def march_field(vol: TsdfVolume) -> torch.Tensor:
     """Flat (V^3,) march field: clip(tsdf, -1, 1) where observed, UNOBSERVED
-    elsewhere; every march and refinement sample reads it once."""
+    elsewhere; every march and refinement sample reads it once. A sharded
+    volume's field is gathered along x (sharded.gather_march_field)."""
+    from realsensetracker_tpu_torch.mapping import sharded
+
+    if sharded.is_sharded(vol):
+        return sharded.gather_march_field(vol)
     return torch.where(vol.weight > 0, vol.tsdf.clamp(-1.0, 1.0), UNOBSERVED).reshape(-1)
 
 
@@ -485,6 +506,7 @@ def render_model_rgbd(vol: TsdfVolume, pose_world_from_cam: torch.Tensor, intr: 
     reduced to BT.601 luma in [0, 1]; misses are (0, 0)."""
     if vol.color is None:
         raise ValueError("render_model_rgbd needs a with_color volume")
+    vol = whole(vol)
     pose = pose_world_from_cam.to(torch.float32)
     depth = render_model_depth(vol, pose, intr, cfg)
     t = pose[:3, 3]
@@ -511,6 +533,15 @@ def render_model_rgbd(vol: TsdfVolume, pose_world_from_cam: torch.Tensor, intr: 
 
 
 # ---- surface extraction (plain torch, on demand) -------------------------
+
+
+def whole(vol: TsdfVolume) -> TsdfVolume:
+    """``vol`` itself, or a sharded volume's planes gathered on every rank
+    (sharded.gather_volume): the input of the on-demand passes below and
+    of the colored render and mesh extraction."""
+    from realsensetracker_tpu_torch.mapping import sharded
+
+    return sharded.gather_volume(vol) if sharded.is_sharded(vol) else vol
 
 
 def _shift(a: torch.Tensor, ax: int, d: int, fill) -> torch.Tensor:
@@ -543,6 +574,7 @@ def _surface_candidates(vol: TsdfVolume, cfg: TsdfConfig, with_normals: bool = F
     (M,), colors (M, 3) | None, normals (M, 3) | None), M = 3 V^2 (V-1), in
     JAX's order (axis, then x, y, z). A zero value counts as a sign
     change, as jnp.sign does."""
+    vol = whole(vol)
     v = cfg.resolution
     vs = f32(cfg.voxel_size)
     dev = vol.tsdf.device

@@ -1,6 +1,13 @@
-"""Batched registration and multi-stream tracking on one device."""
+"""Batched registration and multi-stream tracking, on one device or over a
+mesh of ranks."""
 
-from realsensetracker_tpu_torch.parallel.batched import register_batch, register_batch_chunked  # noqa: F401
+from realsensetracker_tpu_torch.parallel.mesh import balanced_mesh, make_mesh  # noqa: F401
+from realsensetracker_tpu_torch.parallel.batched import (  # noqa: F401
+    register_batch,
+    register_batch_chunked,
+    register_batch_sharded,
+)
+from realsensetracker_tpu_torch.parallel.sharded import register_batch_point_sharded  # noqa: F401
 from realsensetracker_tpu_torch.parallel.streams import (  # noqa: F401
     MASKED_RGBD_STATS_WIDTH,
     MASKED_STATS_WIDTH,
@@ -13,6 +20,7 @@ from realsensetracker_tpu_torch.parallel.streams import (  # noqa: F401
     blank_tsdf_streams,
     init_streams,
     init_tsdf_streams,
+    shard_streams,
     step_streams,
     step_streams_masked,
     step_streams_masked_rgbd,

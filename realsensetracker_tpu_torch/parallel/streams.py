@@ -384,6 +384,27 @@ def step_streams_masked_rgbd_window(
     return state, torch.stack(rows, dim=1)
 
 
+def shard_streams(state, mesh, data_axis: str = "data"):
+    """This rank's contiguous block of the slot axis of a StreamState,
+    RgbdStreamState or TsdfStreamState (volumes included), copied onto the
+    rank's device: the rank at data coordinate r keeps slots r S/n ..
+    (r+1) S/n - 1 and steps them with the same step functions. S must be a
+    multiple of the data size."""
+    from realsensetracker_tpu_torch.parallel import mesh as mesh_mod
+
+    dev = mesh_mod.mesh_device(mesh)
+
+    def take(x):
+        if isinstance(x, torch.Tensor):
+            return x[mesh_mod.block(x.shape[0], mesh, data_axis, "slot axis")].to(dev, copy=True)
+        if isinstance(x, tuple):
+            parts = [take(a) for a in x]
+            return type(x)(*parts) if hasattr(x, "_fields") else tuple(parts)
+        return x
+
+    return take(state)
+
+
 # --- dense (TSDF frame-to-model) streams ---------------------------------------
 
 

@@ -45,6 +45,16 @@ to the numpy one; rs_replay on the card within 1e-4 of the CPU.
 The CLIs: rs_benchmark's projective-icp JSON line well formed and its
 transforms within 1e-4 of the CPU run; rs_streams' printed lines well
 formed and its final poses within 1e-4 of the CPU run.
+
+The multi-device layer: gn_system with an association pose against its
+plain version (gn_system's bars), and without one bit-identical to the old
+entry; the integrate kernel on four x-slabs bit-identical to the whole
+volume's planes. Each sharded entry point on a world-size-1 NCCL group
+(one card: the collectives run, each the identity): point-sharded
+registration within 1e-5 in twist of register_batch with gn_system
+launched sum(iters) x inner_iters times, data-parallel registration, the
+slab TSDF and the sharded executor equal to their unsharded runs, the
+multihost helpers, and dryrun_multichip(1). Two cards are never needed.
 """
 
 import numpy as np
@@ -1045,3 +1055,150 @@ def test_rs_streams_on_cuda_matches_cpu(cuda, monkeypatch):
         assert lines[4] in ("config-5 target 30 FPS/stream: MET", "config-5 target 30 FPS/stream: NOT MET")
         poses[d] = box["state"].poses.cpu()
     torch.testing.assert_close(poses["cuda"], poses["cpu"], rtol=0, atol=1e-4)
+
+
+# --- the multi-device layer: kernel extensions and world-size-1 NCCL ---------------
+
+
+@pytest.mark.parametrize("p", [2048, 777, 16384])
+@pytest.mark.parametrize("b", [1, 512])
+def test_gn_system_with_an_association_pose_matches_reference(cuda, b, p):
+    """gn_system(T, ..., T_assoc): the association at T_assoc, the reduction
+    at T (the point-sharded inner step), against its plain version with
+    gn_system's bars, bit-identical from launch to launch; T_assoc=None is
+    the old entry, bit for bit the same as T_assoc=T."""
+    cfg = projective.ProjectiveIcpConfig()
+    T_assoc, pts, ok, packed, intr = _gn_inputs((240, 320), p, cuda)
+    rows = torch.arange(b, device=cuda) % 3
+    T_assoc, pts, ok, packed = (x[rows].contiguous() for x in (T_assoc, pts, ok, packed))
+    step = se3.exp(torch.tensor([0.003, -0.002, 0.004, 0.002, -0.001, 0.002])).to(cuda)
+    T = (step @ T_assoc).contiguous()
+    before = gn_step.LAUNCHES["gn_system"]
+    got = gn_step.gn_system(T, pts, ok, packed, intr, cfg, T_assoc=T_assoc)
+    again = gn_step.gn_system(T, pts, ok, packed, intr, cfg, T_assoc=T_assoc)
+    torch.cuda.synchronize()
+    assert gn_step.LAUNCHES["gn_system"] == before + 2
+    for x, y in zip((got[0], got[1], *got[2]), (again[0], again[1], *again[2])):
+        assert torch.equal(x, y)
+    _assert_systems_close(got, gn_step.gn_system_reference(T, pts, ok, packed, intr, cfg, T_assoc), p)
+    old = gn_step.gn_system(T, pts, ok, packed, intr, cfg)
+    same = gn_step.gn_system(T, pts, ok, packed, intr, cfg, T_assoc=T.clone())
+    for x, y in zip((old[0], old[1], *old[2]), (same[0], same[1], *same[2])):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("mode", ["full", "color"])
+@pytest.mark.parametrize("v", [48, 128])
+def test_tsdf_integrate_x_slabs_match_the_whole_volume(cuda, v, mode):
+    """Four x-slabs (V/4 planes each, from x0 = k V/4) fused by the kernel
+    are bit-identical to the whole-volume kernel's planes, and the slab
+    kernel to its plain version; x0 = 0, nx = V is the old entry."""
+    cfg, intr, depths, colors, poses = _tsdf_setup(v, cuda, color=mode == "color")
+    whole, _ = _fuse_both(cfg, intr, depths, colors, poses, cuda)
+    n = v // 4
+    for k in range(4):
+        x0 = k * n
+        vk = tsdf_mod.TsdfVolume(*(None if a is None else a[:n].clone() for a in tsdf_mod.init_volume(
+            cfg, with_color=colors is not None, device=cuda)))
+        vp = tsdf_mod.clone_volume(vk)
+        for i in range(depths.shape[0]):
+            c = None if colors is None else colors[i]
+            pcw = se3.inverse(poses[i])
+            before = tsdf_kernels.LAUNCHES["tsdf_integrate"]
+            tsdf_kernels.fuse_block(vk, depths[i], c, pcw, intr, cfg, x0=x0)
+            assert tsdf_kernels.LAUNCHES["tsdf_integrate"] == before + 1
+            tsdf_kernels.fuse_block_reference(vp, depths[i], c, pcw, intr, cfg, x0=x0)
+        torch.cuda.synchronize()
+        for a, b, w in zip(vk, vp, whole):
+            if a is not None:
+                assert torch.equal(a, w[x0 : x0 + n])
+                assert (a - b).abs().max().item() <= 1e-6
+
+
+@pytest.fixture(scope="module")
+def nccl_mesh():
+    """A world-size-1 NCCL group in this process and its 1x1 mesh: every
+    collective of the sharded paths runs, each the identity."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (NCCL)")
+    import torch.distributed as dist
+
+    from realsensetracker_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh()
+    yield mesh
+    dist.destroy_process_group()
+
+
+def test_point_sharded_registration_on_one_nccl_rank(cuda, nccl_mesh):
+    """register_batch_point_sharded at 640x480: gn_system with T_assoc once
+    per inner step (no gn_round), within 1e-5 in twist of register_batch;
+    register_batch_sharded equal to register_batch bit for bit."""
+    from realsensetracker_tpu_torch.parallel import sharded
+
+    intr, cfg = camera.TUM_FR1, projective.ProjectiveIcpConfig()
+    sc = synthetic.default_scene(device=cuda)
+    pairs = [synthetic.render_pair(intr, torch.tensor([0.01 * i, 0.004, -0.003, 0.006, 0.002, -0.004]), sc)
+             for i in range(4)]
+    src = torch.stack([p[1] for p in pairs])
+    dst = torch.stack([p[0] for p in pairs])
+    before = dict(gn_step.LAUNCHES)
+    T, rmse = sharded.register_batch_point_sharded(nccl_mesh, src, dst, intr, cfg)
+    torch.cuda.synchronize()
+    assert gn_step.LAUNCHES["gn_system"] - before["gn_system"] == sum(cfg.iters) * cfg.inner_iters
+    assert gn_step.LAUNCHES["gn_round"] == before["gn_round"]
+    ref = batched.register_batch(src, dst, intr, cfg)
+    twist = se3.log(se3.compose(se3.inverse(ref.transform), T)).abs().amax()
+    assert twist.item() <= 1e-5 and torch.isfinite(rmse).all()
+    res = batched.register_batch_sharded(nccl_mesh, src, dst, intr, cfg)
+    assert torch.equal(res.transform, ref.transform) and torch.equal(res.num_matched, ref.num_matched)
+
+
+def test_sharded_tsdf_on_one_nccl_rank(cuda, nccl_mesh):
+    from realsensetracker_tpu_torch.mapping import sharded as sh
+
+    cfg, intr, depths, _, poses = _tsdf_setup(128, cuda)
+    vol, ref = sh.init_volume_sharded(cfg, nccl_mesh), tsdf_mod.init_volume(cfg, device=cuda)
+    for i in range(depths.shape[0]):
+        sh.integrate(vol, depths[i], poses[i], intr, cfg)
+        tsdf_mod.integrate(ref, depths[i], poses[i], intr, cfg)
+    local, x0 = sh.local_slab(vol)
+    assert x0 == 0 and torch.equal(local.tsdf, ref.tsdf) and torch.equal(local.weight, ref.weight)
+    got, want = sh.raycast(vol, poses[-1], intr, cfg), tsdf_mod.raycast(ref, poses[-1], intr, cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(got > 0, want > 0) and (got - want).abs().max().item() <= 1e-5
+
+
+def test_sharded_executor_and_helpers_on_one_nccl_rank(cuda, nccl_mesh):
+    """BatchingConfig(mesh=...) on the card equals the one-device executor
+    bit for bit (the scatter and the gather are the identity); the
+    multihost helpers run over NCCL."""
+    from realsensetracker_tpu_torch.api.batching import BatchedExecutor, BatchingConfig
+    from realsensetracker_tpu_torch.parallel import multihost
+
+    intr = _intr(120, 160)
+    frames = (_stream_frames(intr, 2, 4, "cpu").numpy() * 5000.0 + 0.5).astype(np.uint16)
+    poses = {}
+    for mesh in (None, nccl_mesh):
+        ex = BatchedExecutor(BatchingConfig(intrinsics=intr, capacity=4, depth_scale=2e-4, mesh=mesh,
+                                            request_timeout_s=60.0))
+        try:
+            trackers = [ex.make_session_tracker() for _ in range(2)]
+            poses[mesh is None] = np.stack([[trackers[i].process(frames[f, i]).pose for f in range(4)]
+                                            for i in range(2)])
+            assert ex.stats()["errors"] == 0
+        finally:
+            ex.close()
+    np.testing.assert_array_equal(poses[False], poses[True])
+    multihost.all_processes_ready()
+    g = multihost.global_frame_batch(np.zeros((2, 12, 16), np.float32), nccl_mesh)
+    assert tuple(g.shape) == (2, 12, 16) and g.to_local().is_cuda
+
+
+def test_dryrun_multichip_on_one_card(cuda):
+    from realsensetracker_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    d = dryrun_multichip(1)
+    assert d["mesh"] == [1, 1] and d["register_max_abs_err"] <= 1e-5 and d["raycast_hit_share"] > 0.3
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        dryrun_multichip(torch.cuda.device_count() + 1)

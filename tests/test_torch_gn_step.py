@@ -139,6 +139,42 @@ def test_gn_system_reference_matches_jax_build_normal_equations(frames, level, s
     _assert_system_close(H, b, aux, H_ref, b_ref, aux_ref)
 
 
+@pytest.mark.parametrize("level, samples, twist, dropout", CASES)
+def test_gn_system_reference_with_an_association_pose_matches_jax(frames, level, samples, twist, dropout):
+    """gn_system's plain version with T_assoc is the inner step of JAX's
+    point-sharded round (parallel/sharded.py): associate_planes_t at
+    T_assoc, then normal_equations_fixed_t at T against those planes."""
+    jlevel, jintr, pts, ok, port_level, T_assoc = _inputs(frames, level, samples, twist, dropout)
+    T = (se3.exp(torch.tensor([0.004, -0.002, 0.003, 0.002, -0.001, 0.003])) @ torch.from_numpy(T_assoc)).numpy()
+    jn, jd, jok = jproj.associate_planes_t(j32(T_assoc), pts.T, ok, jlevel, jintr, JCFG)
+    jH, jb, jaux = jproj.normal_equations_fixed_t(j32(T), pts.T, jn, jd, jok, JCFG)
+    tT, tpts, tok = _port_args(pts, ok, T)
+    tA = torch.from_numpy(T_assoc)[None].contiguous()
+    intr = interop.intrinsics_from_jax(jintr)
+    before = dict(gn_step.LAUNCHES)
+    H, b, aux = gn_step.gn_system(tT, tpts, tok, port_level.packed, intr, CFG, T_assoc=tA)
+    assert gn_step.LAUNCHES == before  # CPU tensors never launch
+    _assert_system_close(H, b, aux, jH, jb, jaux)
+    # The reduction ran at T, not at the association's pose.
+    H_at_A, _, _ = gn_step.gn_system(tA, tpts, tok, port_level.packed, intr, CFG)
+    assert not torch.equal(H, H_at_A)
+
+
+@pytest.mark.parametrize("level, samples, twist, dropout", CASES[:2])
+def test_gn_system_without_an_association_pose_is_unchanged(frames, level, samples, twist, dropout):
+    """T_assoc=None and T_assoc=T give today's system bit for bit: the
+    association and the reduction both at T."""
+    _, jintr, pts, ok, port_level, T = _inputs(frames, level, samples, twist, dropout)
+    tT, tpts, tok = _port_args(pts, ok, T)
+    intr = interop.intrinsics_from_jax(jintr)
+    n, d, aok = projective.associate_planes_t(tT, tpts, tok, port_level, intr, CFG)
+    want = projective.normal_equations_fixed_t(tT, tpts, n, d, aok, CFG)
+    for T_assoc in (None, tT.clone()):
+        H, b, aux = gn_step.gn_system(tT, tpts, tok, port_level.packed, intr, CFG, T_assoc=T_assoc)
+        for x, y in zip((H, b, *aux), (want[0], want[1], *want[2])):
+            torch.testing.assert_close(x, y, rtol=0, atol=0)
+
+
 @pytest.mark.parametrize("level, samples, twist, dropout", CASES[:2])
 def test_fused_first_iteration_equals_separate_calls(frames, level, samples, twist, dropout):
     """gn_round's inner iterations run against the planes of its FIRST

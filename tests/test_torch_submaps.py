@@ -180,8 +180,24 @@ def test_config_matches_jax():
 
 
 def test_optimize_atlas_mesh_names_the_multi_device_item(loop_runs):
-    with pytest.raises(NotImplementedError, match="item 12"):
-        PS.optimize_atlas(loop_runs[1], mesh=object())
+    """optimize_atlas(mesh=...), the multi-device item, on a one-rank gloo
+    mesh of this process: the sharded pair verification (padded to 4 rows,
+    one all-gather) gives the unsharded run's edges and trajectory exactly."""
+    import copy
+
+    import torch.distributed as dist
+
+    from realsensetracker_tpu_torch.parallel.mesh import make_mesh
+
+    plain, sharded = copy.deepcopy(loop_runs[1]), copy.deepcopy(loop_runs[1])
+    mesh = make_mesh(device="cpu")
+    try:
+        n_sharded = PS.optimize_atlas(sharded, surface_capacity=1024, mesh=mesh)
+    finally:
+        dist.destroy_process_group()
+    assert PS.optimize_atlas(plain, surface_capacity=1024) == n_sharded >= 1
+    for a, b in zip(plain.trajectory.poses, sharded.trajectory.poses):
+        np.testing.assert_array_equal(a, b)
 
 
 def test_too_few_submaps_is_a_noop(out_and_back):

@@ -102,6 +102,44 @@ def test_slab_window_equals_the_full_pass(frames):
     assert all(fits)  # the window engages on every frame of this scene
 
 
+@pytest.mark.parametrize("x0, nx", [(0, 48), (0, 12), (12, 12), (36, 12), (20, 7)])
+@pytest.mark.parametrize("mode", ["full", "window", "color"])
+def test_x_slab_fuse_equals_the_slice_of_the_whole_volume(frames, x0, nx, mode):
+    """fuse_block_reference on the planes x0 .. x0+nx-1 alone (the x-slab
+    of mapping/sharded.py) is bit-identical to the same planes of the
+    whole-volume update, and within the integrate bars of JAX's volume;
+    x0 = 0, nx = V is the whole volume itself."""
+    from realsensetracker_tpu_torch.kernels import tsdf as K
+
+    depths, colors = frames
+    color = mode == "color"
+    jcfg, cfg = dense_configs(**(SLAB if mode == "window" else {}))
+    jv = J.init_volume(jcfg, with_color=color)
+    full = P.init_volume(cfg, with_color=color, device="cpu")
+    slab = P.TsdfVolume(*(None if a is None else a[x0 : x0 + nx].clone() for a in full))
+    for d, c, T in zip(depths[:3], colors[:3], POSES[:3]):
+        jv = J.integrate(jv, j32(d), j32(T), JINTR, jcfg, color=j32(c) if color else None)
+        d, T = torch.from_numpy(d), torch.from_numpy(T)
+        c = torch.from_numpy(c) if color else None
+        P.integrate(full, d, T, INTR, cfg, color=c)
+        window = P.slab_window(d, T, INTR, cfg) if mode == "window" else (None, None)
+        K.fuse_block_reference(slab, d, c, P.se3.inverse(T).contiguous(), INTR, cfg,
+                               start=window[0], fits=window[1], x0=x0)
+    for a, b in zip(slab, full):
+        if a is not None:
+            assert torch.equal(a, b[x0 : x0 + nx])
+    volumes_close(J.TsdfVolume(*(None if a is None else a[x0 : x0 + nx] for a in jv)), slab)
+    assert int((full.weight > 0).sum()) > 500
+
+
+def test_x_slab_outside_the_grid_is_refused():
+    from realsensetracker_tpu_torch.kernels import tsdf as K
+
+    vol = P.init_volume(CFG._replace(resolution=8), device="cpu")
+    with pytest.raises(ValueError, match="outside a grid"):
+        K.fuse_block(vol, torch.ones((60, 80)), None, torch.eye(4), INTR, CFG, x0=42)
+
+
 def test_slab_rounding_bound_is_checked():
     """A configuration whose 2-voxel margin cannot cover half a pixel at
     max_depth + trunc (ADVICE r5) is refused instead of trusted."""
