@@ -106,15 +106,23 @@ need for JAX. Phases, one JSON line each:
                    a stable sort of each row at the k-NN shapes of GICP and
                    FPFH.
   10. backbone_kernel -- holds backbone_factor and backbone_apply (the
-                   port's own kernel for the pose graph's block-LDL^T backbone
-                   preconditioner, f64 inside) against their plain versions on
-                   the backbone blocks of a 64- and a 1000-node graph's first GN
-                   iteration: the apply on the plain factors within 1e-5 of |z|,
-                   the kernel's solve no further from an f64 solve than twice
-                   the plain version's (+1e-6), a singular block's non-finite
-                   factors as the plain version's and the apply's guard
-                   returning r; timed against the plain loops, with the bound
-                   and the 3n dependent 6x6 steps of a factor and an apply.
+                   port's own kernel for the pose graph's backbone
+                   preconditioner: block cyclic reduction in f64) against
+                   their plain versions on the backbone blocks of a 64- and
+                   a 1000-node graph's first GN iteration: S_inv, U and z
+                   within 1e-10 of their largest entry (bit for bit
+                   expected), the kernel's solve no further from an f64
+                   solve than twice the plain version's (+1e-6), a singular
+                   block's non-finite factors on the plain version's blocks
+                   and the apply's guard returning r, and a block singular
+                   only from the left (an indefinite M, where JAX's LDL^T
+                   returns r) solved to a finite z, bit for bit as the plain
+                   version; timed against the plain version and, in turns,
+                   against the previous design (csrc/alternatives/
+                   backbone_chain.cu, a block walking the chain), with the
+                   bound over f64's peak and, beside it in this line only,
+                   an estimated latency floor of the critical path (from
+                   assumed, not measured, Hopper latencies).
   11. pose_graph -- optimize_pose_graph on the 1000-node 5-lap graph of
                    tests/test_posegraph_loops.py:96-120 (numpy seed 3), 6 GN x
                    60 backbone-preconditioned CG steps: cost within 1.05x of a
@@ -147,10 +155,11 @@ need for JAX. Phases, one JSON line each:
                    plain version and bit-identical to the whole volume's
                    planes), and csrc/tsdf_raycast.cu, raycast and
                    raycast_coarse_to_fine(coarse=4) at 640x480 on the
-                   fused volume (hit masks identical, depth within 1e-5
-                   where both hit); times both against their plain versions
-                   at 128^3 and at KinectFusion's 512^3 (1 GiB of tsdf and
-                   weight), with the bounds and the march's gather count.
+                   fused volume and at KinectFusion's 512^3 (1 GiB of tsdf
+                   and weight), bit-identical to the plain version, full
+                   and coarse-to-fine; times both kernels against their
+                   plain versions at 128^3 and 512^3, with the bounds and
+                   the march's gather count.
   14. tsdf      -- Tracker(method="tsdf"), default TsdfConfig, over the 30
                    u16 frames of phase 7, per frame and in windows of 8 in
                    turns: every frame succeeds, ATE rmse < 0.02 m, the modes
@@ -210,10 +219,12 @@ need for JAX. Phases, one JSON line each:
                    on every frame; which one TumSequence used and why);
                    host syncs, device-to-host and host-to-device copies per
                    frame from two profiler windows differenced (1 sync per
-                   frame, the pose read; none from staging), the upload
-                   stream against the compute stream and the uploads'
-                   overlap with kernels, the busy share; prefetch=2 against
-                   an inline load, in turns.
+                   frame, the pose read; none from staging), FrameStream's
+                   own upload count (one u16 frame per frame in each
+                   window) with the trace's frame-sized copies beside it
+                   (never more), the upload stream against the compute
+                   stream and the uploads' overlap with kernels, the busy
+                   share; prefetch=2 against an inline load, in turns.
 
   25. cli        -- the remaining entry points through their main(argv) at
                    640x480, in-process: rs_benchmark projective-icp at its
@@ -252,6 +263,11 @@ need for JAX. Phases, one JSON line each:
                    executor; optimize_atlas(mesh=...) on phase 17's atlas
                    with its edges and trajectory; dryrun_multichip(1); the
                    all-reduce's and the all-gathers' ms per call.
+  27. kernel_alone -- the backbone (factor, apply at n = 64 and 1000) and
+                   the raycast (full and coarse-to-fine refine march at
+                   640x480 into 128^3) timed alone: each one's calls in one
+                   CUDA graph, the backbone in turns with its previous
+                   design.
 
 Each main path (register, register_normal_space, tracker, keyframe,
 world_map, model, icp, gicp, align_pair, rgbd, pose_graph, slam, tsdf,
@@ -263,8 +279,9 @@ every launch count set to 0 just before it and read just after; a kernel
 the path runs must have launched there, and the cloud paths (model, icp,
 gicp, align_pair, rs_benchmark gicp and gnc-icp), which run no kernel of
 their own, must have launched none. Then the kernels line, with each kernel's bound (the
-larger of its bytes over 3.35 TB/s and its f32 operations over 67
-TFLOP/s, from this run's inputs), and last {"ok": true, "device": {...}}.
+larger of its bytes over 3.35 TB/s and its operations over 67 TFLOP/s in
+f32, 34 TFLOP/s in f64 for the backbone, from this run's inputs), and last
+{"ok": true, "device": {...}}.
 Any failed check raises: the exit code is non-zero and the last line is
 not printed. Every phase line carries the seconds since the start and the
 process's user and system CPU seconds. The script first starts itself
@@ -301,9 +318,19 @@ MODEL_TRUTH_BAR = 0.05  # tests/test_tracking.py:249-251
 CLOUD_CPU_BAR = 1e-3  # model / icp / gicp twist, CUDA vs CPU, first 3 frames; pipelines
 PIPELINE_TRUTH_BAR = 5e-3  # gicp and fpfh-kabsch-icp vs the known twist (tests/test_api_cli.py:97)
 SYSTEM_BAR = 1e-5  # gn_system's H and b vs the plain version, of trace(H)
-BACKBONE_APPLY_BAR = 1e-5  # the backbone apply on the plain version's factors, of |z|
+BACKBONE_PLAIN_BAR = 1e-10  # backbone kernel vs its plain version (S_inv, U, z), of the largest entry
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM peak HBM3 bandwidth
 F32_FLOPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
+F64_FLOPS_PER_S = 34e12  # H100 SXM f64 outside the tensor cores (NVIDIA's data sheet)
+# An estimate of the backbone's latency floor (backbone_latency_floor):
+# cycles of the dependent operations on its critical path, approximate
+# Hopper latencies (assumed, not measured): a warp shuffle, an f64 divide
+# (a Newton sequence), an f64 add or multiply, a block barrier, an L2 round
+# trip and a shared-memory round trip. Printed in phase 10's line only.
+LATENCY_CYCLES = {"shfl": 30, "ddiv": 150, "dop": 8, "barrier": 40, "l2": 300, "smem": 30}
+# The backbone's previous design, which this script times the kernel
+# against (a block walking the chain; no path of the port launches it).
+PREVIOUS_BACKBONE = "alternatives/backbone_chain.cu"
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
     # The stride-2 compaction probes (stride2_slice :103, stride2_reshape
     # :115): the in-kernel 2x2 downsample between pyramid levels.
@@ -354,6 +381,74 @@ def check(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
+def previous_backbone():
+    """ctypes bindings of the backbone's previous design, the sequential
+    block-LDL^T chain: factor (D, O) -> (S_inv (n,6,6), U (n-1,6,6)) and
+    apply (S_inv, U, r) -> z."""
+    import ctypes
+
+    import torch
+
+    from realsensetracker_tpu_torch.kernels import build
+
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    bb = build.load(PREVIOUS_BACKBONE)
+    bb.rst_backbone_factor.argtypes = [ptr, ptr, ptr, ptr, i32, ptr]
+    bb.rst_backbone_apply.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, ptr]
+    stream = lambda t: torch.cuda.current_stream(t.device).cuda_stream  # noqa: E731
+
+    def chain_factor(D, O):
+        n = D.shape[0]
+        S, U = torch.empty((n, 6, 6), dtype=torch.float64, device=D.device), torch.empty(
+            (n - 1, 6, 6), dtype=torch.float64, device=D.device)
+        err = bb.rst_backbone_factor(D.data_ptr(), O.data_ptr(), S.data_ptr(), U.data_ptr(), n, stream(D))
+        check(err == 0, "previous backbone factor")
+        return S, U
+
+    def chain_apply(S, U, r):
+        n = S.shape[0]
+        y = torch.empty(12 * n, dtype=torch.float64, device=r.device)
+        z = torch.empty_like(r)
+        err = bb.rst_backbone_apply(S.data_ptr(), U.data_ptr(), r.data_ptr(), y.data_ptr(), z.data_ptr(), n,
+                                    stream(r))
+        check(err == 0, "previous backbone apply")
+        return z
+
+    return types.SimpleNamespace(chain_factor=chain_factor, chain_apply=chain_apply)
+
+
+def backbone_work(n: int) -> tuple[int, int]:
+    """(bytes, f64 operations) of one factor and one apply at n nodes:
+    D and O in, S_inv and U (UL, UR) out, r in and z out; per eliminated
+    node the Gauss-Jordan inverse (~880) and UL, UR (864), per kept node
+    and level the next A and B (1,368); per apply ~156 per kept node and
+    level, ~228 per eliminated node."""
+    from realsensetracker_tpu_torch.kernels import backbone
+
+    kept = sum(len(j) for _, _, j in backbone.levels(n))
+    nbytes = 4 * 36 * (2 * n - 1) + 8 * 36 * 3 * n + 8 * 36 * 3 * n + 2 * 4 * 6 * n
+    return nbytes, n * (880 + 864) + kept * 1368 + kept * 156 + n * 228
+
+
+def backbone_latency_floor(n: int, clock_hz: float) -> float:
+    """An estimate, not a measurement: ms of the critical path of one
+    factor and one apply at the assumed LATENCY_CYCLES and the card's
+    maximum SM clock:
+    per level the factor's two phases each wait on an L2 round trip and a
+    barrier, an inversion chains 6 pivot steps (2 shuffles, a divide, 2
+    f64 operations) and its product 6 multiply-adds after 6 shuffles; the
+    apply's two passes chain a shared-memory read, 6 multiply-adds and a
+    barrier per level."""
+    from realsensetracker_tpu_torch.kernels import backbone
+
+    c = LATENCY_CYCLES
+    lv = len(backbone.levels(n))
+    factor = lv * (2 * (c["l2"] + c["barrier"]) + 6 * (2 * c["shfl"] + c["ddiv"] + 2 * c["dop"])
+                   + 6 * c["shfl"] + 12 * c["dop"])
+    apply = 2 * lv * (c["smem"] + 12 * c["dop"] + c["barrier"])
+    return (factor + apply) / clock_hz * 1e3
+
+
 def backbone_and_slam_phases(ctx) -> dict:
     """Phases 10-12: the backbone kernel against its plain version, pose-graph
     optimization, and SLAM at 640x480. ctx carries main()'s helpers (dev,
@@ -384,6 +479,11 @@ def backbone_and_slam_phases(ctx) -> dict:
 
     graphs = {16: synthetic.lap_graph(2, 8, seed=3, loop_every=4), 64: synthetic.lap_graph(2, 32, seed=3, loop_every=4),
               1000: synthetic.lap_graph(5, 200, seed=3)}
+    prev = previous_backbone()
+    clock_hz = 1e6 * float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.split()[0])
+    rel = lambda a, b: ((a.double() - b.double()).abs().max() / b.double().abs().max()).item()  # noqa: E731
     bb_rows, bb_err = [], 0.0
     for k_ in (64, 1000):
         _, est, loops = graphs[k_]
@@ -396,34 +496,61 @@ def backbone_and_slam_phases(ctx) -> dict:
         z_mixed = backbone.backbone_apply(S_ref.contiguous(), U_ref.contiguous(), r)
         S64, U64 = backbone.backbone_factor_reference(D.double(), O.double())
         z64 = backbone.backbone_apply_reference(S64, U64, r.double())
+        S_old, U_old = prev.chain_factor(D, O)
+        z_old = prev.chain_apply(S_old, U_old, r)
         torch.cuda.synchronize()
-        rel = lambda a, b: ((a.double() - b).abs().max() / b.abs().max()).item()  # noqa: E731
-        err_k, err_p, mixed = rel(z, z64), rel(z_ref, z64), rel(z_mixed, z_ref.double())
+        gaps = {"S_inv": rel(S, S_ref), "U": rel(U, U_ref), "z": rel(z, z_ref), "apply_on_plain_factors":
+                rel(z_mixed, z_ref)}
+        err_k, err_p, err_old = rel(z, z64), rel(z_ref, z64), rel(z_old, z64)
         what = f"backbone at n={n}"
-        check(mixed <= BACKBONE_APPLY_BAR, f"{what}: the apply alone {mixed} of |z| > {BACKBONE_APPLY_BAR}")
+        check(max(gaps.values()) <= BACKBONE_PLAIN_BAR, f"{what}: kernel vs plain {gaps} > {BACKBONE_PLAIN_BAR}")
         check(err_k <= 2 * err_p + 1e-6, f"{what}: kernel {err_k} from the f64 solve, plain {err_p}")
+        bits = torch.equal(S, S_ref) and torch.equal(U, U_ref) and torch.equal(z, z_ref)
         err = max((S - S_ref).abs().max().item(), (U - U_ref).abs().max().item(), (z - z_ref).abs().max().item())
         bb_err = max(bb_err, err)
-        k_f = ctx.time_ms(lambda: backbone.backbone_factor(D, O), 50)
-        k_a = ctx.time_ms(lambda: backbone.backbone_apply(S, U, r), 200)
+        # The previous design (one block walking the chain) in turns with the new one.
+        f_new, f_old = ctx.turns(lambda: prev.chain_factor(D, O), lambda: backbone.backbone_factor(D, O), 50, 50)
+        a_new, a_old = ctx.turns(lambda: prev.chain_apply(S_old, U_old, r), lambda: backbone.backbone_apply(S, U, r),
+                                 200, 200)
         k_ms, p_ms = ctx.turns(lambda: backbone.backbone_apply_reference(*backbone.backbone_factor_reference(D, O), r),
                                lambda: backbone.backbone_apply(*backbone.backbone_factor(D, O), r), 2, 50)
-        nbytes = 4 * 36 * (2 * n - 1) * 2 + 4 * (36 * (2 * n - 1) + 12 * n)  # factor in + out; apply in + out
-        b_ms, b_by = ctx.bound(nbytes, n * (1500 + 216))  # ~1500 flops to factor a node, ~216 to apply
-        bb_rows.append({"n": n, "kernel_vs_f64": err_k, "plain_vs_f64": err_p, "apply_on_plain_factors": mixed,
-                        "max_abs_err": err, "ms": k_ms, "factor_ms": k_f, "apply_ms": k_a, "plain_ms": p_ms,
-                        "bound_ms": b_ms, "bound_by": b_by, "dependent_steps": {"factor": n, "apply": 2 * n}})
-    # The guard: a singular block (S_17 = 0) leaves non-finite factors from
-    # its node on, in both versions, and the apply then returns r itself.
+        nbytes, flops = backbone_work(n)
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F64_FLOPS_PER_S * 1e3
+        b_ms, b_by = max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+        bb_rows.append({"n": n, "levels": len(backbone.levels(n)), "kernel_vs_plain": gaps, "bit_identical": bits,
+                        "kernel_vs_f64": err_k, "plain_vs_f64": err_p, "previous_vs_f64": err_old,
+                        "max_abs_err": err, "ms": k_ms, "factor_ms": f_new, "apply_ms": a_new, "plain_ms": p_ms,
+                        "previous_factor_ms": f_old, "previous_apply_ms": a_old, "previous_ms": f_old + a_old,
+                        "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "f64_ops": flops,
+                        "latency_floor_estimate_ms": backbone_latency_floor(n, clock_hz),
+                        "latency_floor_estimate_from": {"assumed_cycles": LATENCY_CYCLES, "max_sm_clock_hz": clock_hz},
+                        "dependent_phases": {"factor": 2 * len(backbone.levels(n)),
+                                             "apply": 2 * len(backbone.levels(n))}})
+    # The guard: a singular block (A_17 = 0 and decoupled, so it is still 0
+    # when the reduction inverts it) leaves non-finite factors on the same
+    # blocks in both versions, and the apply then returns r itself.
     D, O, r = blocks_of(pg.from_trajectory(graphs[64][1], loop_edges=graphs[64][2], device=dev), graphs[64][1].shape[0])
-    D[17], O[16] = -backbone.DIAG * torch.eye(6, device=dev), 0.0  # S_17 = 0 exactly
+    D_left, O_left = D.clone(), O.clone()
+    D[17], O[16], O[17] = -backbone.DIAG * torch.eye(6, device=dev), 0.0, 0.0
     S, U = backbone.backbone_factor(D, O)
     S_ref, U_ref = backbone.backbone_factor_reference(D, O)
     bad = lambda t: (~torch.isfinite(t)).flatten(1).any(-1)  # noqa: E731
     check(torch.equal(bad(S), bad(S_ref)) and bool(bad(S)[17]), "backbone guard: non-finite blocks differ")
     check(torch.equal(backbone.backbone_apply(S, U, r), r), "backbone guard: the apply did not return r")
-    emit("backbone_kernel", bars={"apply_on_plain_factors": BACKBONE_APPLY_BAR, "vs_f64": "2x plain + 1e-6"},
-         rows=bb_rows, guard_blocks_non_finite=int(bad(S).sum().item()), card=card)
+    guard_blocks = int(bad(S).sum().item())
+    # A block singular only from the left (A_17 = 0, O_16 = 0, O_17 kept):
+    # M is indefinite, JAX's LDL^T meets S_17 = 0 and its guard returns r;
+    # the reduction keeps node 17 at the first level, where its right
+    # neighbour makes it regular, and solves to a finite z, in the kernel
+    # as in the plain version.
+    D_left[17], O_left[16] = -backbone.DIAG * torch.eye(6, device=dev), 0.0
+    z_left = backbone.backbone_apply(*backbone.backbone_factor(D_left, O_left), r)
+    z_left_ref = backbone.backbone_apply_reference(*backbone.backbone_factor_reference(D_left, O_left), r)
+    check(bool(torch.isfinite(z_left).all()) and not torch.equal(z_left, r) and torch.equal(z_left, z_left_ref),
+          "backbone: a block singular only from the left is not solved as the plain version solves it")
+    emit("backbone_kernel", bars={"kernel_vs_plain": BACKBONE_PLAIN_BAR, "vs_f64": "2x plain + 1e-6"},
+         rows=bb_rows, guard_blocks_non_finite=guard_blocks, left_singular_block_finite_and_bit_identical=True,
+         card=card)
     big = bb_rows[-1]
 
     # ---- 11. pose-graph optimization (main path) ----------------------------
@@ -635,7 +762,7 @@ def backbone_and_slam_phases(ctx) -> dict:
          per_frame_by_pipeline_place=per_class, deferred_vs_sync_gap_40=defer_gap, card_vs_cpu_gap_20=cpu_gap,
          card=card)
     return {"max_abs_err": bb_err, "ms": big["ms"], "plain_ms": big["plain_ms"], "bound_ms": big["bound_ms"],
-            "bound_by": big["bound_by"], "dependent_steps": big["dependent_steps"]}
+            "bound_by": big["bound_by"], "previous_ms": big["previous_ms"]}
 
 
 def dense_phases(ctx) -> dict:
@@ -776,10 +903,10 @@ def dense_phases(ctx) -> dict:
         check(torch.equal(got > 0, ref > 0), f"tsdf_kernels: {name} hit masks differ")
         hit = got > 0
         gap = (got[hit] - ref[hit]).abs().max().item() if bool(hit.any()) else 0.0
-        check(gap <= 1e-5, f"tsdf_kernels: {name} depth gap {gap} > 1e-5")
+        check(torch.equal(got, ref), f"tsdf_kernels: {name} not bit-identical to its plain version (gap {gap})")
         worst["raycast"] = max(worst["raycast"], gap)
-        ray_cases.append({"case": name, "hits": int(hit.sum()), "max_abs_err": gap,
-                          "bit_identical": bool(torch.equal(got, ref))})
+        ray_cases.append({"case": name, "volume": 128, "hits": int(hit.sum()), "max_abs_err": gap,
+                          "bit_identical": True})
 
     def integrate_bound(cfg_, vol_, depth, pose):
         """Bytes: the frame read once, tsdf and weight read and written at
@@ -803,6 +930,26 @@ def dense_phases(ctx) -> dict:
         gathers = int(steps.sum().item()) + out.numel() + int(hit.sum()) * 16 * cfg_.subvoxel_iters
         return ctx.bound(min(gathers, cfg_.resolution ** 3) * 4 + out.numel() * 4, gathers * 30), gathers
 
+    def march_cases(cfg_, vol_):
+        """At this volume: the kernel bit-identical to its plain version,
+        full (subvoxel_iters of the config) and coarse-to-fine (coarse 4)."""
+        it = cfg_.subvoxel_iters
+        field_ = tsdf_mod.march_field(vol_)  # the volume as the integrate timing left it
+        full_args = (field_, T, intr, cfg_, cfg_.num_steps)
+        got, ref = tsdf_kernels.march(*full_args, subvoxel_iters=it), tsdf_kernels.march_reference(
+            *full_args, subvoxel_iters=it)
+        ci = tsdf_mod.coarse_intrinsics(intr, 4)
+        c2f = tsdf_mod.raycast_coarse_to_fine(vol_, T, intr, cfg_, 4, cfg_.refine_steps)
+        dc = tsdf_kernels.march_reference(field_, T, ci, cfg_, cfg_.num_steps)
+        z0, seeded = tsdf_mod.coarse_seeds(dc, 4, cfg_)
+        c2f_ref = tsdf_kernels.march_reference(field_, T, intr, cfg_, cfg_.refine_steps, z_start=z0, gate=seeded,
+                                               subvoxel_iters=it)
+        torch.cuda.synchronize()
+        check(torch.equal(got, ref) and torch.equal(c2f, c2f_ref),
+              f"tsdf_kernels: the raycast at {cfg_.resolution}^3 is not bit-identical to its plain version")
+        return {"raycast_bit_identical": {"full": True, "coarse_to_fine": True},
+                "raycast_hits": int((got > 0).sum()), "raycast_c2f_hits": int((c2f > 0).sum())}
+
     pcw = se3.inverse(T)
     timing = {}
     ik, ip = ctx.turns(lambda: tsdf_kernels.fuse_block_reference(vol, depths[-1], None, pcw, intr, cfg),
@@ -814,7 +961,8 @@ def dense_phases(ctx) -> dict:
     (rb, rb_by), gathers = raycast_bound(cfg, tsdf_mod.raycast(vol, T, intr, cfg))
     timing[128] = {"integrate_ms": ik, "integrate_plain_ms": ip, "integrate_bound_ms": ib,
                    "integrate_bound_by": ib_by, "updated_voxels": upd, "raycast_ms": rk, "raycast_plain_ms": rp,
-                   "raycast_bound_ms": rb, "raycast_bound_by": rb_by, "raycast_gathers": gathers}
+                   "raycast_bound_ms": rb, "raycast_bound_by": rb_by, "raycast_gathers": gathers,
+                   **march_cases(cfg, vol)}
 
     # KinectFusion's 512^3 volume: 1 GiB of tsdf + weight (the 5.12 m cube at 1 cm).
     cfg512 = tsdf_mod.sized_config(resolution=512, voxel_size=0.01)
@@ -833,7 +981,8 @@ def dense_phases(ctx) -> dict:
     timing[512] = {"integrate_ms": ik5, "integrate_plain_ms": ip5, "integrate_bound_ms": ib5,
                    "integrate_bound_by": ib5_by, "updated_voxels": upd5, "raycast_ms": rk5,
                    "raycast_plain_ms": rp5, "raycast_bound_ms": rb5, "raycast_bound_by": rb5_by,
-                   "raycast_gathers": gathers5, "hits": int((out512 > 0).sum())}
+                   "raycast_gathers": gathers5, "hits": int((out512 > 0).sum()),
+                   **march_cases(cfg512, vol512)}
     del vol512, field512
     emit("tsdf_kernels", frame=[h, w], integrate_cases=[full_case, slab_case, color_case, x_slab_case],
          raycast_cases=ray_cases,
@@ -1425,6 +1574,7 @@ def replay_phase(ctx) -> None:
     from realsensetracker_tpu_torch.api import Tracker, TrackerConfig
     from realsensetracker_tpu_torch.cli import rs_replay
     from realsensetracker_tpu_torch.data import recorded, tum
+    from realsensetracker_tpu_torch.data import stream as frame_stream
     from realsensetracker_tpu_torch.data.stream import stream_tum
     from realsensetracker_tpu_torch.geometry import camera
     from realsensetracker_tpu_torch.tracking import trajectory
@@ -1567,6 +1717,7 @@ def replay_phase(ctx) -> None:
     # syncs are also counted by the profiler's thread: the thread that
     # launches the kernels (the consumer) and any other (the producer).
     def profiled(max_frames):
+        before = dict(frame_stream.UPLOADS)
         with device_trace(tmp, f"trace{max_frames}.json") as prof:
             t0 = time.perf_counter()
             with contextlib.redirect_stdout(io.StringIO()):
@@ -1574,6 +1725,9 @@ def replay_phase(ctx) -> None:
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
         check(rc == 0, "replay: profiled run failed")
+        counted = {k: frame_stream.UPLOADS[k] - before[k] for k in before}
+        check(counted == {"frames": max_frames, "arrays": max_frames},
+              f"replay: FrameStream uploaded {counted} in a {max_frames}-frame run (expected one u16 frame each)")
         events = prof.events()
         launches = [e.thread for e in events if e.name.startswith("cudaLaunchKernel")]
         consumer = statistics.mode(launches) if launches else None
@@ -1585,6 +1739,8 @@ def replay_phase(ctx) -> None:
         kernels = [e for e in trace if e.get("cat") == "kernel"]
         htod = [e for e in trace if e.get("cat") == "gpu_memcpy" and "HtoD" in e.get("name", "")]
         uploads = [e for e in htod if e["args"].get("bytes") == h * w * 2]  # the u16 frames
+        check(0 < len(uploads) <= counted["arrays"],
+              f"replay: the trace holds {len(uploads)} frame-sized uploads, FrameStream made {counted['arrays']}")
         compute = statistics.mode([e["args"]["stream"] for e in kernels]) if kernels else None
         spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in kernels)
         overlap = 0.0
@@ -1598,15 +1754,20 @@ def replay_phase(ctx) -> None:
         return {"syncs": len(syncs), "syncs_consumer_thread": sum(e.thread == consumer for e in syncs),
                 "syncs_other_threads": sum(e.thread != consumer for e in syncs),
                 "dtoh": sum("DtoH" in e.name for e in device), "htod": len(htod), "frame_uploads": len(uploads),
+                "counted_uploads": counted["arrays"], "uploads_missing_from_trace": counted["arrays"] - len(uploads),
                 "upload_streams": sorted({e["args"]["stream"] for e in uploads}), "compute_stream": compute,
                 "upload_us": sum(e["dur"] for e in uploads), "upload_overlap_us": overlap,
                 "busy_share": busy / wall_us}
 
+    # The uploads are held by FrameStream's own count (one per frame in each
+    # run, above); the trace's frame-sized memcpy records are reported beside
+    # it: the trace holds fewer than the run made, by a number that moves by
+    # one from run to run, so they do not difference to one per frame.
     p10, p30 = profiled(10), profiled(30)
     per_frame = {k: (p30[k] - p10[k]) / 20
-                 for k in ("syncs", "syncs_other_threads", "dtoh", "htod", "frame_uploads")}
+                 for k in ("syncs", "syncs_other_threads", "dtoh", "htod", "frame_uploads", "counted_uploads")}
     check(per_frame["syncs"] == 1, f"replay: host syncs per frame {per_frame} (expected 1: the pose read)")
-    check(per_frame["frame_uploads"] == 1, f"replay: frame uploads per frame {per_frame}")
+    check(per_frame["counted_uploads"] == 1, f"replay: frame uploads per frame {per_frame}")
     check(p30["compute_stream"] not in p30["upload_streams"],
           f"replay: uploads on streams {p30['upload_streams']}, the compute stream is {p30['compute_stream']}")
 
@@ -2139,6 +2300,60 @@ def multidevice_phase(ctx) -> None:
          phase_s=time.perf_counter() - t_phase, card=card)
 
 
+def kernel_alone_phase(ctx) -> None:
+    """Phase 27: the backbone and the raycast timed alone on the card, each
+    one's calls captured in one CUDA graph and replayed between two events
+    (a small kernel's events otherwise time its launches): factor and apply
+    at n = 64 and 1000 in turns with the previous chain, and the full march
+    and the coarse-to-fine refine march at 640x480 into 128^3. Last of the
+    phases, so that no graph runs before a profiler window. ctx: dev, card,
+    graph_ms, intr."""
+    import torch
+
+    from realsensetracker_tpu_torch.data import synthetic
+    from realsensetracker_tpu_torch.kernels import backbone
+    from realsensetracker_tpu_torch.kernels import tsdf as tsdf_kernels
+    from realsensetracker_tpu_torch.mapping import tsdf as tsdf_mod
+    from realsensetracker_tpu_torch.optimize import pose_graph as pg
+
+    dev, intr = ctx.dev, ctx.intr
+    prev = previous_backbone()
+    rows = {}
+    for n, (laps, per, kw) in ((64, (2, 32, {"loop_every": 4})), (1000, (5, 200, {}))):  # phase 10's graphs
+        _, est, loops = synthetic.lap_graph(laps, per, seed=3, **kw)
+        graph = pg.from_trajectory(est, loop_edges=loops, device=dev)
+        zero = torch.zeros((n, 6), dtype=torch.float32, device=dev)
+        r_edges = pg._edge_residuals(zero, graph)
+        w_rob = pg.robust_weights(r_edges, 0.1, use_gm=False)
+        J = pg.edge_jacobians(graph, graph.poses, graph.weights * w_rob)
+        D, O = pg.backbone_blocks(graph, J, n, torch.full((), 1e-6, device=dev))
+        r = -pg.gradient(J, graph, (r_edges * w_rob[:, None]).reshape(-1), n)
+        S, U = backbone.backbone_factor(D, O)
+        S_old, U_old = prev.chain_factor(D, O)
+        ms = {}
+        for name in ("previous", "kernel", "kernel", "previous"):
+            fac = (lambda: prev.chain_factor(D, O)) if name == "previous" else (lambda: backbone.backbone_factor(D, O))
+            app = (lambda: prev.chain_apply(S_old, U_old, r)) if name == "previous" else (
+                lambda: backbone.backbone_apply(S, U, r))
+            ms.setdefault(f"{name}_factor", []).append(ctx.graph_ms(fac, 10))
+            ms.setdefault(f"{name}_apply", []).append(ctx.graph_ms(app, 50))
+        rows[f"backbone_n{n}"] = {k: sum(v) / len(v) for k, v in ms.items()}
+
+    cfg = tsdf_mod.TsdfConfig()
+    depths, _, poses = synthetic.render_trajectory_rgbd(intr, 10, seed=0, device=dev)
+    vol = tsdf_mod.init_volume(cfg, device=dev)
+    for i in range(depths.shape[0]):
+        tsdf_mod.integrate(vol, depths[i], poses[i], intr, cfg)
+    field, T, it = tsdf_mod.march_field(vol), poses[-1], cfg.subvoxel_iters
+    dc = tsdf_kernels.march(field, T, tsdf_mod.coarse_intrinsics(intr, 4), cfg, cfg.num_steps)
+    z0, seeded = tsdf_mod.coarse_seeds(dc, 4, cfg)
+    cases = {"full": ((field, T, intr, cfg, cfg.num_steps), dict(subvoxel_iters=it)),
+             "fine": ((field, T, intr, cfg, cfg.refine_steps), dict(z_start=z0, gate=seeded, subvoxel_iters=it))}
+    for case, (a, kw) in cases.items():
+        rows[f"raycast_{case}_128"] = {"kernel": ctx.graph_ms(lambda: tsdf_kernels.march(*a, **kw), 20)}
+    emit("kernel_alone", rows=rows, card=ctx.card)
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -2235,7 +2450,8 @@ def main() -> None:
         return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
     # ---- 2. build the kernels, one nvcc each, together -------------------
-    sources = (downsample.SOURCE, level_kernel.SOURCE, gn_step.SOURCE, backbone.SOURCE, *tsdf_kernels.SOURCES)
+    sources = (downsample.SOURCE, level_kernel.SOURCE, gn_step.SOURCE, backbone.SOURCE, *tsdf_kernels.SOURCES,
+               PREVIOUS_BACKBONE)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=len(sources)) as pool:
         list(pool.map(build.build, sources))
@@ -2925,6 +3141,25 @@ def main() -> None:
         p1, k1, k2, p2 = time_ms(run_p, reps_p), time_ms(run_k, reps_k), time_ms(run_k, reps_k), time_ms(run_p, reps_p)
         return (k1 + k2) / 2, (p1 + p2) / 2
 
+    def graph_ms(fn, reps):
+        """Device ms per call of fn: reps calls captured in one CUDA graph and
+        replayed between two events (no host time: a small kernel's
+        launches would set its events' pace)."""
+        fn()
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(reps):
+                fn()
+        graph.replay()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / reps
+
     # The downsample at B=512, 640x480, L=4: one launch for the chunk.
     d512 = levels_of(dst_big[:chunk])[0]
     compare_downsample(d512, num_levels)
@@ -3116,8 +3351,8 @@ def main() -> None:
     # ---- 13-17. TSDF kernels, dense tracking, mesh, submap atlas ---------
     dense = dense_phases(types.SimpleNamespace(
         dev=dev, card=card, reset_counts=reset_counts, read_counts=read_counts, check_counts=check_counts,
-        bound=bound, turns=turns, time_ms=time_ms, ate_of=ate_of, twist_gap=twist_gap, trace_calls=trace_calls,
-        intr=intr,
+        bound=bound, turns=turns, time_ms=time_ms, ate_of=ate_of, twist_gap=twist_gap,
+        trace_calls=trace_calls, intr=intr,
     ))
     atlas_for_mesh = dense.pop("atlas")
 
@@ -3144,6 +3379,9 @@ def main() -> None:
         time_ms=time_ms, atlas=atlas_for_mesh,
     ))
 
+    # ---- 27. kernel_alone: the backbone and the raycast in CUDA graphs ----
+    kernel_alone_phase(types.SimpleNamespace(dev=dev, card=card, graph_ms=graph_ms, intr=intr))
+
     for name, n in main_launches.items():
         check(n > 0, f"the main paths never launched {name}")
     errs = {"downsample_levels": ds_worst["abs"], "build_level_packed": max_err, "gn_round": gn_err,
@@ -3158,19 +3396,20 @@ def main() -> None:
     # No single PyTorch call computes any of these functions (a
     # validity-aware mean over several levels, a plane table, a round of
     # gated GNC Gauss-Newton with its 6x6 solves, a projective gather with
-    # its gated GNC system, a block-LDL^T factor and solve of 6x6 blocks),
-    # so library_ms is null throughout. The backbone row is its factor and
-    # one apply at n = 1000, a chain of n + 2n dependent 6x6 steps. No
-    # PyTorch call computes a gated TSDF running average or a ray march
-    # either; their rows are one integrate of a 640x480 frame into the
-    # default 128^3 volume and one full 640x480 raycast of it, the march's
-    # gather count beside its bound.
+    # its gated GNC system, a block cyclic reduction of 6x6 blocks), so
+    # library_ms is null throughout. The backbone row is its factor and one
+    # apply at n = 1000, its bound over f64's peak, with the previous
+    # design's time (a chain of n + 2n dependent 6x6 steps), measured in
+    # turns in this run, beside it. No PyTorch call computes a gated TSDF
+    # running average or a ray march either; their rows are one integrate
+    # of a 640x480 frame into the default 128^3 volume and one full 640x480
+    # raycast of it, the march's gather count beside its bound.
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": main_launches[name], "max_abs_err": errs[name],
          "ms": times[name][0], "plain_ms": times[name][1],
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1], "library_ms": None,
-         **({"dependent_steps": bb["dependent_steps"]} if name == "backbone" else {}),
+         **({"previous_ms": bb["previous_ms"]} if name == "backbone" else {}),
          **({"gathers": dense[name]["gathers"]} if name == "tsdf_raycast" else {})}
         for name, (source, replaces) in KERNELS.items()
     ]}), flush=True)

@@ -25,10 +25,18 @@
 //
 // Design: one thread per ray. The march stops at the first crossing: JAX
 // runs the fixed trip count, but its `found` latches and its hit never
-// moves after it, so the result is the same. z_k is computed afresh at each
+// moves after it, so the result is the same. A ray the gate closes is 0
+// whatever its march finds, so it is not marched (its gate word is read
+// beside z_start, before the ray's setup). z_k is computed afresh at each
 // step (never accumulated), as JAX computes it. A 128^3 field is 8 MB and
-// stays in H100's 50 MB L2; each step is one 4-byte gather, each refinement
-// 16.
+// stays in H100's 50 MB L2; each step is one 4-byte gather, each
+// refinement 16. A warp-cooperative march (a team of lanes per ray, one
+// step per lane, a ballot for the first crossing) gave the same bits and
+// took several times as long on the H100; it was not kept (PERF.md
+// section 6).
+//
+// Bound: at 640x480 into 128^3 the march's gathers are 20.7 M words of one
+// 8 MB field, so neither bytes nor f32 operations bound it (0.0093 ms).
 //
 // Rounding: the operations and their order are the plain torch version's
 // (mapping/tsdf.py _ray_dirs, _march, _trilinear_tsdf, _refine_subvoxel):
@@ -129,6 +137,8 @@ raycast_kernel(const float* __restrict__ field, const float* __restrict__ pose, 
                float z0, const bool* __restrict__ gate, float* __restrict__ out, Params p) {
   const int ray = blockIdx.x * blockDim.x + threadIdx.x;
   if (ray >= p.h * p.w) return;
+  const bool open = gate == nullptr || gate[ray];  // loaded beside z_start, before the ray's setup
+  const float zs = z_start != nullptr ? z_start[ray] : z0;
   const int u = ray % p.w;
   const int v = ray / p.w;
   Ray r;
@@ -143,7 +153,10 @@ raycast_kernel(const float* __restrict__ field, const float* __restrict__ pose, 
   r.o[0] = p.ox;
   r.o[1] = p.oy;
   r.o[2] = p.oz;
-  const float zs = z_start != nullptr ? z_start[ray] : z0;
+  if (!open) {  // 0 whatever the march finds
+    out[ray] = 0.0f;
+    return;
+  }
 
   bool prev_seen;
   float prev_val = sample(field, r, zs, p, &prev_seen);
@@ -163,7 +176,6 @@ raycast_kernel(const float* __restrict__ field, const float* __restrict__ pose, 
     prev_val = val;
     prev_seen = seen;
   }
-  if (gate != nullptr && !gate[ray]) found = false;
   if (!found) {
     out[ray] = 0.0f;
     return;

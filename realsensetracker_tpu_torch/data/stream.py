@@ -38,6 +38,11 @@ import torch
 
 from realsensetracker_tpu_torch import device as device_mod
 
+# Host-to-device copies made by FrameStream's default CUDA transfer: frames
+# staged, and arrays uploaded (None entries and tensors already on the card
+# are not). Added to on the producer thread, never reset here.
+UPLOADS = {"frames": 0, "arrays": 0}
+
 
 class _Uploaded(NamedTuple):
     """A frame's device tensors (None where the frame had None) and the
@@ -132,9 +137,11 @@ class FrameStream:
                     pinned = torch.empty(host.shape, dtype=host.dtype, pin_memory=True)
                     pinned.copy_(host)
                     host = pinned
+                    UPLOADS["arrays"] += 1
                 out.append(host.to(self.device, non_blocking=True))
             event = torch.cuda.Event()
             event.record(self._side)
+        UPLOADS["frames"] += 1
         return _Uploaded(tuple(out), event, single)
 
     def _hand_out(self, item):

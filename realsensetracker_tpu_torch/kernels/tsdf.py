@@ -19,8 +19,9 @@ dozen V^3 temporaries per integrate.
 * ``march`` launches csrc/tsdf_raycast.cu: one thread per ray marches the
   field from its z_start for n_steps, stops at the first crossing (JAX's
   fixed trip count latches ``found`` and never moves the hit after it),
-  then runs ``subvoxel_iters`` trilinear refinements. ``raycast`` and both
-  phases of ``raycast_coarse_to_fine`` use it.
+  then runs ``subvoxel_iters`` trilinear refinements; a ray the gate
+  closes is not marched. ``raycast`` and both phases of
+  ``raycast_coarse_to_fine`` use it.
 
 CPU tensors run the plain versions, ``fuse_block_reference`` (the
 mapping/tsdf._fuse_block pass, torch.where-gated) and ``march_reference``

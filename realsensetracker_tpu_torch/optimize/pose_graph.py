@@ -7,15 +7,17 @@ relative-pose edge measurements (odometry + loop closures) it minimizes
 
 by Gauss-Newton (staged Huber -> Geman-McClure IRLS, a per-node trust
 region, Levenberg-Marquardt accept/reject) with the normal equations
-solved by conjugate gradients, preconditioned by an exact block-LDL^T
-factorization of the odometry backbone. Node 0 is gauge-fixed.
+solved by conjugate gradients, preconditioned by an exact solve of the
+odometry backbone (JAX: block-LDL^T; the port: block cyclic reduction,
+kernels/backbone.py). Node 0 is gauge-fixed.
 
 Where JAX forms Hv by jax.jvp + jax.vjp through the residuals, the port
 builds the same linear operator from the per-edge 6x12 Jacobians the
 preconditioner needs anyway (one vmapped jacfwd per GN iteration): Hv is a
 gather of (v_i, v_j), two batched products and one scatter-add, plus the
 damping. The backbone factor and apply are the port's own CUDA kernel
-(kernels/backbone.py) on the card and plain torch loops on the CPU. Every
+(kernels/backbone.py) on the card and their plain torch versions on the
+CPU. Every
 decision -- the preconditioner's finiteness guard, the step's, the LM
 accept/reject -- is a torch.where on the device: one optimize_pose_graph
 call copies nothing to the host until its result is read.
@@ -194,16 +196,6 @@ def _cg(matvec, b, iters: int, eps: float = 1e-12, precond=None):
         p = z + beta * p
         rz = rz_new
     return x
-
-
-def _inv6(M: torch.Tensor) -> torch.Tensor:
-    """Scale-normalized 6x6 inverse: inv(M) = inv(M/s)/s with s = tr(M)/6,
-    LU with partial pivoting (non-finite for a singular block, as JAX's).
-    torch.linalg.inv_ex leaves the singularity check to the caller: no
-    host sync."""
-    s = torch.diagonal(M, dim1=-2, dim2=-1).sum(-1) / 6.0
-    s = torch.where(s.abs() > 1e-30, s, 1.0)
-    return torch.linalg.inv_ex(M / s[..., None, None])[0] / s[..., None, None]
 
 
 def backbone_blocks(graph: PoseGraph, J: torch.Tensor, n: int, damping):

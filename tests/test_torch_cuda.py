@@ -28,14 +28,21 @@ k-core exactly. FPFH is held row by row: a pair whose |n1.d| and |n2.d|
 agree to an ulp (neighbours with the same k-NN set) takes the origin
 switch by rounding (tests/test_torch_fpfh.py), so a few rows may part.
 
+The backbone preconditioner (csrc/backbone.cu, block cyclic reduction in
+f64) is held to its plain version within 1e-10 of the largest entry of
+S_inv, U and z (the same operations in the same order: bit for bit is
+expected) at n from 2 to 5000, odd n included; a singular block and a NaN
+give non-finite factors on the same blocks and the apply returns r.
+
 The dense kernels (the port's own: csrc/tsdf_integrate.cu and
 csrc/tsdf_raycast.cu) are held to their plain torch versions at V = 48 and
 128, full pass, slab window and colored: tsdf and weight within 1e-6 (they
 compute the same operations in the same order, so bit for bit is
 expected) with the update masks identical, a closed gate leaving the volume
 bit-identical; the raycast with the hit masks identical and depth within
-1e-5 where both hit, full and coarse-to-fine; Tracker(method="tsdf") on
-the card within 1e-4 of the CPU.
+1e-5 where both hit, full and coarse-to-fine, and at 128^3 and 512^3 bit
+for bit (full, coarse-to-fine, a per-ray z_start, a gate, no steps);
+Tracker(method="tsdf") on the card within 1e-4 of the CPU.
 
 Host I/O: 64 u16 frames through FrameStream(prefetch=2), each read by the
 consumer's kernels behind a long matmul, equal to their host copies (the
@@ -620,14 +627,17 @@ def _backbone_blocks(n, seed=0):
 
 
 def _rel(got, ref):
-    return ((got - ref).abs().max() / ref.abs().max()).item()
+    """max |got - ref| over max |ref| (0 when both are all zero)."""
+    return ((got - ref).abs().max() / ref.abs().max().clamp_min(1e-300)).item()
 
 
-@pytest.mark.parametrize("n", [8, 64, 1000])
+@pytest.mark.parametrize("n", [2, 3, 8, 64, 127, 1000, 1001, 5000])
 def test_backbone_kernel_matches_reference(cuda, n):
     """Factor and apply against their plain versions on the same card
-    tensors: S_inv, U and z within 1e-4 of their largest entry (f32 sums
-    in another order, compounded along the chain); the launch counts."""
+    tensors, at n of one and several levels, odd n, and past the 4096 nodes
+    the apply keeps in shared memory: S_inv, U and z within 1e-10 of their
+    largest entry (the kernel does the plain version's operations in its
+    order, so bit for bit is expected); the launch counts."""
     D, O, r = (t.to(cuda) for t in _backbone_blocks(n))
     before = dict(backbone.LAUNCHES)
     S_inv, U = backbone.backbone_factor(D, O)
@@ -638,52 +648,71 @@ def test_backbone_kernel_matches_reference(cuda, n):
     torch.cuda.synchronize()
     assert backbone.LAUNCHES == {"backbone_factor": before["backbone_factor"] + 1,
                                  "backbone_apply": before["backbone_apply"] + 2}
-    assert _rel(S_inv, S_ref) < 1e-4
-    if n > 1:
-        assert _rel(U, U_ref) < 1e-4
-    assert _rel(z, z_ref) < 1e-4
-    assert _rel(z_mixed, z_ref) < 1e-5  # the apply alone, on the same factors
+    assert _rel(S_inv, S_ref) <= 1e-10
+    assert _rel(U, U_ref) <= 1e-10
+    assert _rel(z, z_ref) <= 1e-10
+    assert _rel(z_mixed, z_ref) <= 1e-10  # the apply alone, on the same factors
     # M z = r: the factor solves the block-tridiagonal system.
-    M = torch.zeros((6 * n, 6 * n), dtype=torch.float64, device=cuda)
-    for i in range(n):
-        M[6 * i : 6 * i + 6, 6 * i : 6 * i + 6] = D[i]
-        if i + 1 < n:
-            M[6 * i : 6 * i + 6, 6 * i + 6 : 6 * i + 12] = O[i]
-            M[6 * i + 6 : 6 * i + 12, 6 * i : 6 * i + 6] = O[i].T
-    M = M + 1e-10 * torch.eye(6 * n, dtype=torch.float64, device=cuda)
-    resid = (M @ z.double() - r.double()).abs().max() / r.abs().max()
-    assert resid.item() < 1e-5
+    if n <= 1001:
+        M = torch.zeros((6 * n, 6 * n), dtype=torch.float64, device=cuda)
+        for i in range(n):
+            M[6 * i : 6 * i + 6, 6 * i : 6 * i + 6] = D[i]
+            if i + 1 < n:
+                M[6 * i : 6 * i + 6, 6 * i + 6 : 6 * i + 12] = O[i]
+                M[6 * i + 6 : 6 * i + 12, 6 * i : 6 * i + 6] = O[i].T
+        M = M + 1e-10 * torch.eye(6 * n, dtype=torch.float64, device=cuda)
+        resid = (M @ z.double() - r.double()).abs().max() / r.abs().max()
+        assert resid.item() < 1e-5
 
 
 def test_backbone_kernel_non_finite_guard(cuda):
-    """A singular block (D_k = -1e-10 I and no coupling, so S_k = 0 exactly)
-    leaves non-finite factors from that node on, in the kernel as in the
-    plain version (inv_ex's LU), and the apply then returns r itself, as
-    CG's guard does; a NaN in D or in r does the same."""
+    """A singular block (D_k = -1e-10 I and no coupling on either side, so
+    A_k = 0 at every level until the reduction inverts it) leaves
+    non-finite factors, in the kernel on the same blocks as in the plain
+    version, and the apply then returns r itself, as CG's guard does; a
+    NaN in D or in r does the same."""
     n, k = 64, 17
     D, O, r = (t.to(cuda) for t in _backbone_blocks(n, seed=1))
     D[k] = -backbone.DIAG * torch.eye(6, device=cuda)
     O[k - 1] = 0.0
+    O[k] = 0.0
     def bad(S):  # blocks with a non-finite entry
         return (~torch.isfinite(S)).flatten(1).any(-1)
 
     S_inv, U = backbone.backbone_factor(D, O)
     S_ref, U_ref = backbone.backbone_factor_reference(D, O)
-    assert torch.equal(bad(S_inv), bad(S_ref)) and bad(S_inv)[k] and not bad(S_inv)[:k].any()
+    assert torch.equal(bad(S_inv), bad(S_ref)) and bad(S_inv)[k]
+    assert torch.equal(bad(U), bad(U_ref))
     assert torch.equal(backbone.backbone_apply(S_inv, U, r), r)
     assert torch.equal(backbone.backbone_apply_reference(S_ref, U_ref, r), r)
-    # A NaN in D: the plain version on the CPU (LAPACK, as JAX's) carries it
-    # on; torch.linalg.inv_ex on the card returns finite numbers for a
-    # matrix with a NaN entry, so the card's plain version is not the yardstick.
     D_nan = _backbone_blocks(n)[0].to(cuda)
     D_nan[k, 2, 3] = float("nan")
     S_nan, U_nan = backbone.backbone_factor(D_nan, O)
+    assert torch.equal(bad(S_nan), bad(backbone.backbone_factor_reference(D_nan, O)[0]))
     assert torch.equal(bad(S_nan).cpu(), bad(backbone.backbone_factor_reference(D_nan.cpu(), O.cpu())[0]))
     assert torch.equal(backbone.backbone_apply(S_nan, U_nan, r), r)
     good_S, good_U = backbone.backbone_factor(*(t.to(cuda) for t in _backbone_blocks(n)[:2]))
     r_nan = r.clone()
     r_nan[5] = float("nan")
     assert torch.equal(backbone.backbone_apply(good_S, good_U, r_nan).isnan(), r_nan.isnan())
+
+
+def test_backbone_kernel_left_singular_block(cuda):
+    """A block singular only from the left (D_k = -1e-10 I, O_{k-1} = 0,
+    O_k kept): M is indefinite and JAX's LDL^T returns r
+    (tests/test_torch_pose_graph.py::
+    test_backbone_left_singular_block_diverges_from_jax); the reduction
+    solves it to a finite z, the kernel bit for bit as its plain version."""
+    n, k = 64, 17
+    D, O, r = (t.to(cuda) for t in _backbone_blocks(n, seed=1))
+    D[k] = -backbone.DIAG * torch.eye(6, device=cuda)
+    O[k - 1] = 0.0
+    S_inv, U = backbone.backbone_factor(D, O)
+    S_ref, U_ref = backbone.backbone_factor_reference(D, O)
+    z = backbone.backbone_apply(S_inv, U, r)
+    z_ref = backbone.backbone_apply_reference(S_ref, U_ref, r)
+    assert torch.equal(S_inv, S_ref) and torch.equal(U, U_ref) and torch.equal(z, z_ref)
+    assert torch.isfinite(z).all() and not torch.equal(z, r)
 
 
 def test_optimize_pose_graph_on_cuda_matches_cpu(cuda):
@@ -799,6 +828,50 @@ def test_tsdf_raycast_kernel_matches_reference(cuda, v, coarse):
     assert int((got > 0).sum()) > 0.3 * got.numel()
     hit = got > 0
     assert (got[hit] - ref[hit]).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("case", ["full", "coarse_to_fine", "z_start", "gate", "no_steps"])
+@pytest.mark.parametrize("v", [128, 512])
+def test_tsdf_raycast_kernel_bit_identical(cuda, v, case):
+    """The march against march_reference, bit for bit, at 240x320 into
+    128^3 and 512^3 (4.8 m cubes): the full march, both phases of
+    coarse-to-fine (coarse 4), a per-ray z_start (numpy seed 9) with the
+    refine budget, a random gate (the rays it closes are not marched), and
+    no steps (all zeros)."""
+    cfg, _, depths, _, poses = _tsdf_setup(v, cuda)
+    intr = _intr(240, 320)
+    sc = synthetic.default_scene(seed=3, device=cuda)
+    vol = tsdf_mod.init_volume(cfg, device=cuda)
+    for T in poses:
+        tsdf_mod.integrate(vol, synthetic.render_depth(intr, T, sc), T, intr, cfg)
+    field = tsdf_mod.march_field(vol)
+    T = poses[-1]
+    rng = np.random.RandomState(9)
+    full = tsdf_kernels.march_reference(field, T, intr, cfg, cfg.num_steps)
+    z0 = torch.from_numpy(rng.uniform(0.0, 0.3, full.shape).astype(np.float32)).to(cuda)
+    z0 = torch.where(full > 0, full - z0, float(cfg.min_depth)).contiguous()
+    gate = torch.from_numpy(rng.rand(*full.shape) < 0.5).to(cuda)
+    n_steps, kw = cfg.num_steps, dict(subvoxel_iters=cfg.subvoxel_iters)
+    if case == "coarse_to_fine":
+        ci = tsdf_mod.coarse_intrinsics(intr, 4)
+        dc, dc_ref = (fn(field, T, ci, cfg, cfg.num_steps) for fn in (tsdf_kernels.march, tsdf_kernels.march_reference))
+        assert torch.equal(dc, dc_ref)
+        z_c, seeded = tsdf_mod.coarse_seeds(dc_ref, 4, cfg)
+        n_steps, kw = cfg.refine_steps, dict(kw, z_start=z_c, gate=seeded)
+    elif case == "z_start":
+        n_steps, kw = cfg.refine_steps, dict(kw, z_start=z0)
+    elif case == "gate":
+        kw = dict(kw, gate=gate)
+    elif case == "no_steps":
+        n_steps = 0
+    before = tsdf_kernels.LAUNCHES["tsdf_raycast"]
+    got = tsdf_kernels.march(field, T, intr, cfg, n_steps, **kw)
+    ref = tsdf_kernels.march_reference(field, T, intr, cfg, n_steps, **kw)
+    torch.cuda.synchronize()
+    assert tsdf_kernels.LAUNCHES["tsdf_raycast"] == before + 1
+    assert torch.equal(got, ref)
+    share = (got > 0).float().mean().item()
+    assert share == 0.0 if case == "no_steps" else share > (0.15 if case == "gate" else 0.3)
 
 
 def test_tsdf_tracker_on_cuda_matches_cpu(cuda):
@@ -921,6 +994,22 @@ def test_frame_stream_orders_uploads_before_the_consumer(cuda):
     for host, got, s in zip(frames, copies, sums):
         assert torch.equal(got.cpu(), torch.from_numpy(host.astype(np.int32)))
         assert s.item() == float(host.astype(np.float64).sum())
+
+
+def test_frame_stream_counts_its_uploads(cuda):
+    """stream.UPLOADS: one frame and one array per u16 frame, two arrays
+    for a (depth, color) frame, none for a None entry or a tensor already
+    on the card."""
+    from realsensetracker_tpu_torch.data import stream
+
+    depth = np.zeros((48, 64), np.uint16)
+    color = np.zeros((48, 64, 3), np.uint8)
+    on_card = torch.zeros((48, 64), device=cuda)
+    source = [(0.0, depth), (1.0, depth), (2.0, (depth, color)), (3.0, (depth, None)), (4.0, on_card)]
+    before = dict(stream.UPLOADS)
+    with stream.FrameStream(iter(source), device=cuda) as fs:
+        assert len(list(fs)) == 5
+    assert {k: stream.UPLOADS[k] - before[k] for k in before} == {"frames": 5, "arrays": 5}
 
 
 def test_frame_stream_consumer_waits_for_a_slow_upload(cuda):

@@ -189,12 +189,13 @@ def test_backbone_preconditioner_matches_jax(graph):
 
 
 def test_inv6_matches_jax_including_singular_blocks():
-    """The scaled 6x6 inverse, and the non-finite pattern of a singular
-    block (all ones), as jnp.linalg.inv gives them."""
+    """The scaled 6x6 inverse (the backbone's Gauss-Jordan, in f64), and
+    the non-finite pattern of a singular block (all ones), as JAX's _inv6
+    (jnp.linalg.inv) gives them."""
     rng = np.random.RandomState(5)
     A = rng.randn(4, 6, 6).astype(np.float32)
     blocks = np.concatenate([A @ A.transpose(0, 2, 1) + np.eye(6, dtype=np.float32), np.ones((1, 6, 6), np.float32)])
-    got = pg._inv6(torch.from_numpy(blocks)).numpy()
+    got = backbone.gj_inv6(torch.from_numpy(blocks).double()).numpy()
     ref = np.stack([np.asarray(jpg._inv6(j32(b))) for b in blocks])
     np.testing.assert_allclose(got[:4], ref[:4], rtol=1e-4, atol=1e-6)
     np.testing.assert_array_equal(np.isfinite(got[4]), np.isfinite(ref[4]))
@@ -203,8 +204,9 @@ def test_inv6_matches_jax_including_singular_blocks():
 
 def test_backbone_plain_version_solves_and_guards():
     """backbone_factor/apply on the CPU solve the block-tridiagonal system;
-    a singular block (S_i exactly 0) or a NaN in r sends r through
-    unchanged (CG's guard)."""
+    a singular block (A_9 exactly 0 and decoupled from both neighbours, so
+    it is still 0 when the reduction inverts it) or a NaN in r sends r
+    through unchanged (CG's guard)."""
     n = 40
     g = torch.Generator().manual_seed(0)
     J = torch.randn((n - 1, 6, 12), generator=g)
@@ -215,22 +217,189 @@ def test_backbone_plain_version_solves_and_guards():
     r = torch.randn(6 * n, generator=g)
     S_inv, U = backbone.backbone_factor(D, O)
     z = backbone.backbone_apply(S_inv, U, r).double()
-    M = torch.zeros((6 * n, 6 * n), dtype=torch.float64)
-    for i in range(n):
-        M[6 * i : 6 * i + 6, 6 * i : 6 * i + 6] = D[i]
-        if i + 1 < n:
-            M[6 * i : 6 * i + 6, 6 * i + 6 : 6 * i + 12] = O[i]
-            M[6 * i + 6 : 6 * i + 12, 6 * i : 6 * i + 6] = O[i].T
+    M = _dense(D, O)
     assert ((M @ z - r.double()).abs().max() / r.abs().max()).item() < 1e-5
-    D[9], O[8] = -backbone.DIAG * torch.eye(6), 0.0  # S_9 = 0 exactly
+    D[9], O[8], O[9] = -backbone.DIAG * torch.eye(6), 0.0, 0.0  # A_9 = 0 at every level
     S_bad, U_bad = backbone.backbone_factor(D, O)
-    assert not torch.isfinite(S_bad[9]).all() and torch.isfinite(S_bad[:9]).all()
+    assert not torch.isfinite(S_bad[9]).any()  # 0 * NaN carries it on to the later levels' blocks
     assert torch.equal(backbone.backbone_apply(S_bad, U_bad, r), r)
     r_nan = r.clone()
     r_nan[3] = float("nan")
     assert torch.equal(backbone.backbone_apply(S_inv, U, r_nan).isnan(), r_nan.isnan())
     with pytest.raises(ValueError, match="shape"):
         backbone.backbone_apply(S_inv, U, r[:-6])
+
+
+def _dense(D, O, diag=backbone.DIAG):
+    """The block-tridiagonal matrix in f64, + diag I on nodes >= 1."""
+    n = D.shape[0]
+    M = torch.zeros((6 * n, 6 * n), dtype=torch.float64)
+    for i in range(n):
+        M[6 * i : 6 * i + 6, 6 * i : 6 * i + 6] = D[i].double() + (diag * torch.eye(6, dtype=torch.float64) if i else 0)
+        if i + 1 < n:
+            M[6 * i : 6 * i + 6, 6 * i + 6 : 6 * i + 12] = O[i].double()
+            M[6 * i + 6 : 6 * i + 12, 6 * i : 6 * i + 6] = O[i].double().T
+    return M
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 5, 7, 64, 127, 200])
+def test_backbone_cyclic_reduction_solves_in_f64(n):
+    """The reduction at odd n, powers of two and one below: every node is
+    eliminated at exactly one level, and the plain factor and apply in f64
+    solve the system to f64 rounding (1e-12 of |z|)."""
+    lv = backbone.levels(n)
+    assert len(lv) == n.bit_length()
+    assert torch.equal(torch.sort(torch.cat([p for _, p, _ in lv])).values, torch.arange(n))
+    rng = np.random.RandomState(n)
+    J = torch.from_numpy(rng.randn(max(n - 1, 0), 6, 12))
+    D = torch.eye(6, dtype=torch.float64).repeat(n, 1, 1)
+    D[:-1] += J[:, :, :6].transpose(1, 2) @ J[:, :, :6]
+    D[1:] += J[:, :, 6:].transpose(1, 2) @ J[:, :, 6:]
+    O = J[:, :, :6].transpose(1, 2) @ J[:, :, 6:]
+    r = torch.from_numpy(rng.randn(6 * n))
+    z = backbone.backbone_apply_reference(*backbone.backbone_factor_reference(D, O), r)
+    ref = torch.linalg.solve(_dense(D, O), r)
+    assert ((z - ref).abs().max() / ref.abs().max()).item() < 1e-12
+
+
+def test_gj_inv6_inverts_and_marks_singular_blocks():
+    """The reduction's 6x6 inverse (Gauss-Jordan with partial pivoting)
+    against torch.linalg.inv in f64, a scale of 1e6 included; a zero block,
+    an all-ones block and a NaN entry give non-finite entries, as JAX's
+    _inv6 does."""
+    rng = np.random.RandomState(6)
+    A = rng.randn(8, 6, 6)
+    blocks = torch.from_numpy(A @ A.transpose(0, 2, 1) + np.eye(6))
+    blocks[3] *= 1e6
+    blocks[5] = torch.from_numpy(rng.randn(6, 6))  # not symmetric: pivoting matters
+    np.testing.assert_allclose(backbone.gj_inv6(blocks).numpy(), torch.linalg.inv(blocks).numpy(),
+                               rtol=1e-9, atol=1e-12 * 1e-6)
+    bad = torch.stack([torch.zeros(6, 6), torch.ones(6, 6), torch.eye(6)]).double()
+    bad[2, 2, 3] = float("nan")
+    got = backbone.gj_inv6(bad)
+    for b, g_ in zip(bad, got):
+        assert not np.isfinite(np.asarray(jpg._inv6(j32(b.float().numpy())))).all()
+        assert not torch.isfinite(g_).all()
+
+
+def _jax_guarded(j_apply, r):
+    """JAX's precond behind its CG guard (pose_graph.py:120-122)."""
+    z = j_apply(j32(r))
+    return np.asarray(jnp.where(jnp.all(jnp.isfinite(z)), z, j32(r)))
+
+
+@pytest.mark.parametrize("case", ["nan_in_r", "inf_weight", "nan_pose"])
+def test_backbone_guard_matches_jax(case):
+    """Where JAX's guarded preconditioner sends r through (a NaN in r, an
+    infinite loop-edge weight, a NaN in a pose), the port's does too, and
+    elsewhere both are finite."""
+    gt, est, loops = _loop12()
+    if case == "inf_weight":
+        loops = [(i, j, T, np.inf) for i, j, T, _ in loops]
+    if case == "nan_pose":
+        est = est.copy()
+        est[5, 0, 3] = np.nan
+    jg, g = _both(est, loops)
+    n = est.shape[0]
+    _, w_rob, _, _, _ = _jax_linearization(jg, n)
+    j_apply = jpg._block_tridiag_precond(jg, jg.poses, w_rob, n, jnp.float32(1e-3))
+    J = pg.edge_jacobians(g, g.poses, g.weights * torch.from_numpy(np.array(w_rob)))
+    apply = pg._block_tridiag_precond(g, J, n, torch.tensor(1e-3))
+    r = np.random.RandomState(7).randn(6 * n).astype(np.float32)
+    if case == "nan_in_r":
+        r[8] = np.nan
+    ref = _jax_guarded(j_apply, r)
+    got = apply(torch.from_numpy(r)).numpy()
+    sent_through = np.array_equal(ref, r, equal_nan=True)
+    assert sent_through and np.array_equal(got, r, equal_nan=True)
+
+
+def test_backbone_singular_block_guard_as_jax():
+    """A singular diagonal block (A_5 = 0, decoupled): JAX's _inv6 of it is
+    non-finite, so its chain and then its guard give r; the port's plain
+    version gives r too."""
+    n = 12
+    g = torch.Generator().manual_seed(3)
+    D = torch.eye(6).repeat(n, 1, 1) * 2.0
+    O = 0.1 * torch.randn((n - 1, 6, 6), generator=g)
+    D[5], O[4], O[5] = -backbone.DIAG * torch.eye(6), 0.0, 0.0
+    assert not (D[5].double() + backbone.DIAG * torch.eye(6, dtype=torch.float64)).any()
+    assert not np.isfinite(np.asarray(jpg._inv6(j32(np.zeros((6, 6), np.float32))))).all()
+    r = torch.randn(6 * n, generator=g)
+    assert torch.equal(backbone.backbone_apply(*backbone.backbone_factor(D, O), r), r)
+
+
+def _jax_ldlt_guarded(D, O, r):
+    """JAX's backbone solve on given blocks (D, O): the block LDL^T of
+    realsensetracker_tpu/optimize/pose_graph.py:222-258 with its _inv6, its
+    1e-10 on each S_i and HIGHEST matmuls, then CG's guard (:120-122)."""
+    hi = jax.lax.Precision.HIGHEST
+    Dj, Oj, rn = j32(D.numpy()), j32(O.numpy()), j32(r.numpy()).reshape(-1, 6)
+    n = Dj.shape[0]
+    S_inv, U = [jpg._inv6(Dj[0])], []
+    for i in range(1, n):
+        U.append(jnp.matmul(S_inv[-1], Oj[i - 1], precision=hi))
+        S = Dj[i] - jnp.matmul(Oj[i - 1].T, U[-1], precision=hi) + 1e-10 * jnp.eye(6, dtype=jnp.float32)
+        S_inv.append(jpg._inv6(S))
+    y = [rn[0]]
+    for i in range(1, n):
+        y.append(rn[i] - jnp.matmul(U[i - 1].T, y[-1], precision=hi))
+    z = [jnp.matmul(S_inv[-1], y[-1], precision=hi)]
+    for i in range(n - 2, -1, -1):
+        z.insert(0, jnp.matmul(S_inv[i], y[i], precision=hi) - jnp.matmul(U[i], z[0], precision=hi))
+    return _jax_guarded(lambda _: jnp.concatenate(z), r.numpy())
+
+
+def test_backbone_left_singular_block_diverges_from_jax():
+    """Where the port parts from JAX, recorded: a block singular only from
+    the left (D_9 = -1e-10 I, O_8 = 0, O_9 kept) makes M indefinite. JAX's
+    LDL^T meets S_9 = 0 there, its _inv6 is non-finite and its guard
+    returns r. The reduction keeps node 9 at its first level, where its
+    right neighbour makes the block regular, and solves M z = r to a finite
+    z (1e-5 of |r|). optimize_pose_graph never builds such an M: its
+    backbone is SPD (test_backbone_blocks_are_spd_at_the_damping_floor)."""
+    n = 40
+    g = torch.Generator().manual_seed(0)
+    J = torch.randn((n - 1, 6, 12), generator=g)
+    D = torch.zeros((n, 6, 6)) + torch.eye(6)
+    D[:-1] += J[:, :, :6].transpose(1, 2) @ J[:, :, :6]
+    D[1:] += J[:, :, 6:].transpose(1, 2) @ J[:, :, 6:]
+    O = (J[:, :, :6].transpose(1, 2) @ J[:, :, 6:]).contiguous()
+    r = torch.randn(6 * n, generator=g)
+    D[9], O[8] = -backbone.DIAG * torch.eye(6), 0.0  # S_9 = 0 exactly in LDL^T
+    M = _dense(D, O)
+    assert torch.linalg.eigvalsh(M).min().item() < 0
+    assert np.array_equal(_jax_ldlt_guarded(D, O, r), r.numpy())
+    z = backbone.backbone_apply(*backbone.backbone_factor(D, O), r)
+    assert torch.isfinite(z).all() and not torch.equal(z, r)
+    assert ((M @ z.double() - r.double()).abs().max() / r.abs().max()).item() < 1e-5
+    D_ok, O_ok = D.clone(), O.clone()
+    D_ok[9] = torch.eye(6)  # the same chain with a regular block: JAX and the port agree
+    ref = _jax_ldlt_guarded(D_ok, O_ok, r)
+    got = backbone.backbone_apply(*backbone.backbone_factor(D_ok, O_ok), r).numpy()
+    assert np.abs(got - ref).max() <= 1e-5 * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("use_gm", [False, True], ids=["huber", "geman_mcclure"])
+@pytest.mark.parametrize("at", ["start", "optimized"])
+def test_backbone_blocks_are_spd_at_the_damping_floor(graph, at, use_gm):
+    """The claim the reduction's guard rests on: the backbone that
+    optimize_pose_graph builds (backbone_blocks: every edge's J^T J, +
+    damping + 1e-8 on nodes >= 1, node 0 an identity block, + the factor's
+    1e-10) is SPD at the damping floor (1e-6), with either IRLS weight, at
+    the start poses and after three GN iterations: symmetric, its smallest
+    eigenvalue in f64 above 0 and its Cholesky factor found."""
+    _, _, est, loops, _, g = graph
+    n = est.shape[0]
+    poses = g.poses if at == "start" else pg.optimize_pose_graph(g, gn_iters=3)[0]
+    r_edges = pg._edge_residuals(torch.zeros((n, 6)), g._replace(poses=poses))
+    w_rob = pg.robust_weights(r_edges, 0.1, use_gm)
+    J = pg.edge_jacobians(g, poses, g.weights * w_rob)
+    D, O = pg.backbone_blocks(g, J, n, torch.tensor(1e-6))
+    M = _dense(D, O)
+    assert torch.equal(M, M.T)
+    assert torch.linalg.eigvalsh(M).min().item() > 0
+    assert torch.linalg.cholesky_ex(M).info.item() == 0
 
 
 # --- optimize_pose_graph --------------------------------------------------------
