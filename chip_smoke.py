@@ -146,14 +146,20 @@ need for JAX. Phases, one JSON line each:
                    place in the booking pipeline.
 
   13. tsdf_kernels -- holds the port's own TSDF kernels against their plain
-                   versions on the card: csrc/tsdf_integrate.cu over 10
-                   fused 640x480 frames into the default 128^3 x 4 cm
-                   volume, full pass, slab window (integrate_slab=96) and
-                   colored (tsdf, weight and color within 1e-6, the update
-                   masks identical), one x-slab of 32 planes from x0 = 64
-                   (a rank's slab of a sharded volume: within 1e-6 of its
-                   plain version and bit-identical to the whole volume's
-                   planes), and csrc/tsdf_raycast.cu, raycast and
+                   versions on the card. csrc/tsdf_integrate.cu (tile map,
+                   brick cull, update of the kept bricks) bit-identical to
+                   fuse_block_reference over 10 fused 640x480 frames into
+                   the default 128^3 x 4 cm volume: full pass, slab window
+                   (integrate_slab=96), colored, x-slabs of 32 planes from
+                   x0 = 64 (equal to the whole volume's planes) and of 37
+                   from x0 = 61, 32 adversarial poses at V = 40, 48, 96 and
+                   128, frames without valid depth and a closed gate (the
+                   volume unchanged, no brick kept), and the slot entry
+                   (4 slots, mixed gates, one call) against a call per
+                   slot; for each frame the cull launched alone lists the
+                   plain twin's bricks, which hold every voxel the update
+                   predicate takes; the kept and updated shares at 128^3
+                   and 512^3. csrc/tsdf_raycast.cu, raycast and
                    raycast_coarse_to_fine(coarse=4) at 640x480 on the
                    fused volume and at KinectFusion's 512^3 (1 GiB of tsdf
                    and weight), bit-identical to the plain version, full
@@ -263,11 +269,12 @@ need for JAX. Phases, one JSON line each:
                    executor; optimize_atlas(mesh=...) on phase 17's atlas
                    with its edges and trajectory; dryrun_multichip(1); the
                    all-reduce's and the all-gathers' ms per call.
-  27. kernel_alone -- the backbone (factor, apply at n = 64 and 1000) and
-                   the raycast (full and coarse-to-fine refine march at
-                   640x480 into 128^3) timed alone: each one's calls in one
-                   CUDA graph, the backbone in turns with its previous
-                   design.
+  27. kernel_alone -- the backbone (factor, apply at n = 64 and 1000), the
+                   raycast (full and coarse-to-fine refine march at
+                   640x480 into 128^3) and the integrate (at 128^3 and
+                   512^3; its tile map and cull alone) timed alone: each
+                   one's calls in one CUDA graph, the backbone and the
+                   integrate in turns with their previous designs.
 
 Each main path (register, register_normal_space, tracker, keyframe,
 world_map, model, icp, gicp, align_pair, rgbd, pose_graph, slam, tsdf,
@@ -286,6 +293,15 @@ Any failed check raises: the exit code is non-zero and the last line is
 not printed. Every phase line carries the seconds since the start and the
 process's user and system CPU seconds. The script first starts itself
 again with glibc's large blocks kept on the heap (MALLOC_ENV).
+
+    python3 chip_smoke.py --against OTHER_ROOT [--rounds N]
+
+times the dense tracker of this checkout against another checkout of the
+repository (an earlier commit unpacked with git archive), in turns: one
+fresh process per measurement, OTHER, this, this, OTHER, N rounds
+(tree_host_ms: Tracker(method="tsdf") host ms per frame over phase 14's
+30-frame walk at 640x480 into 128^3, and host ms per integrate call with
+its launches). It prints the card's nvidia-smi line and one JSON line.
 """
 
 from __future__ import annotations
@@ -331,6 +347,9 @@ LATENCY_CYCLES = {"shfl": 30, "ddiv": 150, "dop": 8, "barrier": 40, "l2": 300, "
 # The backbone's previous design, which this script times the kernel
 # against (a block walking the chain; no path of the port launches it).
 PREVIOUS_BACKBONE = "alternatives/backbone_chain.cu"
+# The integrate's previous design, timed in turns with the brick kernel (one
+# thread per voxel of the whole grid; no path of the port launches it).
+PREVIOUS_INTEGRATE = "alternatives/tsdf_integrate_flat.cu"
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
     # The stride-2 compaction probes (stride2_slice :103, stride2_reshape
     # :115): the in-kernel 2x2 downsample between pyramid levels.
@@ -354,6 +373,12 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
     # Not Pallas kernels either: the plain-XLA integrate (_fuse_block :277)
     # and raycast march (_march :446, _refine_subvoxel :548), the port's own.
     "tsdf_integrate": ("realsensetracker_tpu_torch/csrc/tsdf_integrate.cu", "realsensetracker_tpu/mapping/tsdf.py:277"),
+    # The integrate's first launch: the frame's largest valid
+    # depth per 16x16 pixels, which the brick cull reads; part of _fuse_block.
+    "tsdf_depth_tiles": ("realsensetracker_tpu_torch/csrc/tsdf_integrate.cu", "realsensetracker_tpu/mapping/tsdf.py:277"),
+    # Its second: the bricks that can hold an updated voxel,
+    # listed on the device for the third, the update itself.
+    "tsdf_cull": ("realsensetracker_tpu_torch/csrc/tsdf_integrate.cu", "realsensetracker_tpu/mapping/tsdf.py:277"),
     "tsdf_raycast": ("realsensetracker_tpu_torch/csrc/tsdf_raycast.cu", "realsensetracker_tpu/mapping/tsdf.py:446,548"),
 }
 
@@ -415,6 +440,165 @@ def previous_backbone():
         return z
 
     return types.SimpleNamespace(chain_factor=chain_factor, chain_apply=chain_apply)
+
+
+def previous_integrate():
+    """ctypes binding of the integrate's previous design (one thread per
+    voxel of the whole grid): flat(vol, depth, pose_cam_from_world, intr,
+    cfg) fuses one frame into a depth-only volume in place."""
+    import ctypes
+
+    import torch
+
+    from realsensetracker_tpu_torch.kernels import build
+    from realsensetracker_tpu_torch.mapping.tsdf import f32
+
+    ptr, i32, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib = build.load(PREVIOUS_INTEGRATE)
+    lib.rst_tsdf_integrate.argtypes = [ptr] * 10 + [i32] * 6 + [f] * 13 + [ptr]
+
+    def flat(vol, depth, pcw, intr, cfg):
+        v, o = cfg.resolution, cfg.origin
+        h, w = depth.shape
+        err = lib.rst_tsdf_integrate(
+            vol.tsdf.data_ptr(), vol.weight.data_ptr(), None, None, depth.data_ptr(), None, pcw.data_ptr(),
+            None, None, None, v, 0, v, h, w, 0, f32(intr.fx), f32(intr.fy), f32(intr.cx), f32(intr.cy),
+            f32(o[0]), f32(o[1]), f32(o[2]), f32(cfg.voxel_size), f32(cfg.trunc), f32(1.0 / cfg.trunc),
+            f32(cfg.min_depth), f32(cfg.max_depth), f32(cfg.max_weight),
+            torch.cuda.current_stream(depth.device).cuda_stream)
+        check(err == 0, "previous integrate")
+
+    return flat
+
+
+def tree_host_ms(root: str) -> dict:
+    """Host ms of the dense main path with the package of checkout ``root``
+    (imported from there, in this process): Tracker(method="tsdf") over
+    phase 14's 30-frame walk as u16 at 640x480 into the default 128^3
+    volume, per frame (a tracker warmed on 3 frames first; the median and
+    mean of frames 2-30, each process() ending in its one host copy); and
+    mapping.tsdf.integrate of the walk's last frame into a volume holding
+    the first ten, 200 calls in a row, and kernels.tsdf.fuse_block alone
+    (the pose inverted once), 1000 calls, per call with its launches (wall
+    time to a sync after the last)."""
+    sys.path.insert(0, os.path.abspath(root))
+    import numpy as np
+    import torch
+
+    import realsensetracker_tpu_torch as pkg
+    from realsensetracker_tpu_torch.api import Tracker, TrackerConfig
+    from realsensetracker_tpu_torch.data import synthetic
+    from realsensetracker_tpu_torch.geometry import camera, se3
+    from realsensetracker_tpu_torch.kernels import tsdf as tsdf_kernels
+    from realsensetracker_tpu_torch.mapping import tsdf as tsdf_mod
+
+    check(os.path.dirname(os.path.abspath(pkg.__file__)) == os.path.join(os.path.abspath(root), pkg.__name__),
+          f"tree_host_ms: imported {pkg.__file__}, not the package of {root}")
+    dev, intr = torch.device("cuda", 0), camera.TUM_FR1
+    walk_d, walk_poses = synthetic.render_trajectory(intr, 30, seed=0, device=dev)
+    frames = [torch.from_numpy(np.clip(d * 1000.0, 0, 65000).astype(np.uint16)).to(dev) for d in walk_d.cpu().numpy()]
+    cfg = TrackerConfig(intrinsics=intr, method="tsdf", device="cuda")
+    warm = Tracker(cfg)
+    for f in frames[:3]:
+        warm.process(f)
+    tracker, ms = Tracker(cfg), []
+    for i, f in enumerate(frames):
+        t0 = time.perf_counter()
+        res = tracker.process(f, float(i))
+        ms.append((time.perf_counter() - t0) * 1e3)
+        check(res.success, f"tree_host_ms: frame {i} failed")
+    vcfg = tsdf_mod.TsdfConfig()
+    vol = tsdf_mod.init_volume(vcfg, device=dev)
+    for i in range(10):
+        tsdf_mod.integrate(vol, walk_d[i], walk_poses[i], intr, vcfg)
+    d, T = walk_d[-1], walk_poses[-1]
+    tsdf_mod.integrate(vol, d, T, intr, vcfg)
+    pcw = se3.inverse(T).contiguous()
+
+    def per_call(fn, n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / n
+
+    return {"root": root, "frame_ms_median": statistics.median(ms[1:]), "frame_ms_mean": statistics.mean(ms[1:]),
+            "integrate_ms": per_call(lambda: tsdf_mod.integrate(vol, d, T, intr, vcfg), 200),
+            "fuse_block_ms": per_call(lambda: tsdf_kernels.fuse_block(vol, d, None, pcw, intr, vcfg), 1000)}
+
+
+def against(other: str, rounds: int) -> None:
+    """tree_host_ms of ``other`` and of this checkout in turns (other, this,
+    this, other per round), each in a fresh process: one JSON line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is False; needs a CUDA card")
+    here = os.path.dirname(os.path.abspath(__file__))
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout.strip(), flush=True)
+    runs = {"other": [], "this": []}
+    for _ in range(rounds):
+        for name in ("other", "this", "this", "other"):
+            root = os.path.abspath(other) if name == "other" else here
+            out = subprocess.run([sys.executable, os.path.abspath(__file__), "--tree-ms", root], capture_output=True,
+                                 text=True, timeout=600, cwd=root)
+            check(out.returncode == 0, f"tree_host_ms of {root} failed: {out.stderr[-2000:]}")
+            runs[name].append(json.loads(out.stdout.strip().splitlines()[-1]))
+    summary = {name: {k: [r[k] for r in rs] for k in ("frame_ms_median", "frame_ms_mean", "integrate_ms", "fuse_block_ms")}
+               for name, rs in runs.items()}
+    print(json.dumps({"phase": "against", "other": os.path.abspath(other), "rounds": rounds, "runs": summary}),
+          flush=True)
+
+
+def look_at(forward, pos):
+    """world_from_cam (4, 4) f32 at ``pos`` with the camera's +z along
+    ``forward`` (an exact axis gives a rotation of 0s and 1s)."""
+    import numpy as np
+
+    f = np.asarray(forward, np.float64)
+    f = f / np.linalg.norm(f)
+    helper = np.array([0.0, 1.0, 0.0]) if abs(f[1]) < 0.9 else np.array([1.0, 0.0, 0.0])
+    x = np.cross(helper, f)
+    x = x / np.linalg.norm(x)
+    T = np.eye(4)
+    T[:3, :3] = np.stack([x, np.cross(f, x), f], 1)
+    T[:3, 3] = pos
+    return T.astype(np.float32)
+
+
+def adversarial_poses(cfg, n: int, seed: int = 0):
+    """(n, 4, 4) f32 world_from_cam poses that stress the integrate's brick
+    cull in the volume of ``cfg``, in turn: on a brick corner inside the
+    volume looking exactly along an axis (frustum planes on voxel planes),
+    on a face of the volume looking along it (grazing), outside looking in,
+    and anywhere in or around it at a random tilt."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    v, vs = cfg.resolution, cfg.voxel_size
+    lo, ext = np.array(cfg.origin, np.float64), cfg.resolution * cfg.voxel_size
+    axes = np.concatenate([np.eye(3), -np.eye(3)])
+    poses = []
+    for k in range(n):
+        if k % 4 == 0:
+            corner = np.array([8 * rng.randint(-(-v // 8) + 1), 8 * rng.randint(-(-v // 8) + 1),
+                               32 * rng.randint(-(-v // 32) + 1)])
+            pos, fwd = lo + np.minimum(corner, v) * vs, axes[rng.randint(6)]
+        elif k % 4 == 1:
+            a = rng.randint(3)
+            pos = lo + ext * rng.rand(3)
+            pos[a] = lo[a] + ext * rng.randint(2)
+            fwd = axes[(a + 1 + rng.randint(2)) % 3] * rng.choice([-1.0, 1.0])
+        elif k % 4 == 2:
+            d = rng.randn(3)
+            pos = lo + ext / 2 + d / np.linalg.norm(d) * ext * rng.uniform(0.6, 1.5)
+            fwd = lo + ext / 2 - pos + 0.1 * ext * rng.randn(3)
+        else:
+            pos, fwd = lo + ext * rng.uniform(-0.2, 1.2, 3), rng.randn(3)
+        poses.append(look_at(fwd, pos))
+    return np.stack(poses)
 
 
 def backbone_work(n: int) -> tuple[int, int]:
@@ -835,27 +1019,56 @@ def dense_phases(ctx) -> dict:
     colors = colors.contiguous()
     worst = {"integrate": 0.0, "raycast": 0.0}
 
+    def fuse_checked(vk, vp, depth, color, pose_wc, cfg_, start=None, fits=None, x0=0, gate=None):
+        """One frame through the kernel into vk and through the plain
+        version into vp; the cull launched alone on the same frame
+        (depth_tiles, cull_bricks) lists the plain twin's bricks, and those
+        hold every brick the update predicate touches (on a copy of vp whose
+        weights are zero). Returns (the kept share, the updated voxels)."""
+        nx = vk.tsdf.shape[0]
+        pcw = se3.inverse(pose_wc).contiguous()
+        zero = tsdf_mod.TsdfVolume(*(None if a is None else (torch.zeros_like(a) if i % 2 else a.clone())
+                                     for i, a in enumerate(vp)))
+        tsdf_kernels.fuse_block(vk, depth, color, pcw, intr, cfg_, gate=gate, start=start, fits=fits, x0=x0)
+        tsdf_kernels.fuse_block_reference(vp, depth, color, pcw, intr, cfg_, gate, start, fits, x0)
+        tsdf_kernels.fuse_block_reference(zero, depth, color, pcw, intr, cfg_, gate, start, fits, x0)
+        one = lambda t: None if t is None else t[None]  # noqa: E731
+        count = torch.empty((1,), dtype=torch.int32, device=dev)
+        tiles = tsdf_kernels.depth_tiles(depth[None], cfg_, count)
+        kept = tsdf_kernels.cull_bricks(pcw[None], tiles, count, intr, cfg_, h, w, x0, nx, one(gate), one(start),
+                                        one(fits))[: int(count.item())]
+        twin = tsdf_kernels.brick_mask_reference(
+            pcw[None], intr, cfg_, tsdf_kernels.depth_tiles_reference(depth[None], cfg_), h, w, x0, nx, one(gate),
+            one(start), one(fits))[0]
+        check(torch.equal(torch.sort(kept).values, torch.nonzero(twin.reshape(-1))[:, 0]),
+              f"tsdf_kernels: the kernel's kept bricks differ from the twin's at {cfg_}")
+        missed = int((tsdf_kernels.bricks_holding(zero.weight > 0) & ~twin).sum())
+        check(missed == 0, f"tsdf_kernels: {missed} bricks with an updated voxel culled at {cfg_}")
+        return kept.numel() / twin.numel(), int((zero.weight > 0).sum())
+
+    def bits_of(vk, vp, what):
+        torch.cuda.synchronize()
+        gap = max((a - b).abs().max().item() for a, b in zip(vk, vp) if a is not None)
+        check(all(torch.equal(a, b) for a, b in zip(vk, vp) if a is not None),
+              f"tsdf_kernels: {what} not bit-identical to its plain version (gap {gap})")
+        worst["integrate"] = max(worst["integrate"], gap)
+        return gap
+
     def fuse_both(cfg_, color, depths_=depths, poses_=poses):
         vk = tsdf_mod.init_volume(cfg_, with_color=color, device=dev)
         vp = tsdf_mod.clone_volume(vk)
-        fits_n = 0
+        fits_n, kept = 0, []
         for i in range(depths_.shape[0]):
             c = colors[i] if color else None
-            pcw = se3.inverse(poses_[i])
             start = fits = None
             if 0 < cfg_.integrate_slab < cfg_.resolution:
                 start, fits = tsdf_mod.slab_window(depths_[i], poses_[i], intr, cfg_)
                 fits_n += int(fits)
-            tsdf_kernels.fuse_block(vk, depths_[i], c, pcw, intr, cfg_, start=start, fits=fits)
-            tsdf_kernels.fuse_block_reference(vp, depths_[i], c, pcw, intr, cfg_, start=start, fits=fits)
-        torch.cuda.synchronize()
-        check(torch.equal(vk.weight > 0, vp.weight > 0), "tsdf_kernels: integrate update masks differ")
-        gap = max((a - b).abs().max().item() for a, b in zip(vk, vp) if a is not None)
-        check(gap <= 1e-6, f"tsdf_kernels: integrate gap {gap} > 1e-6")
-        worst["integrate"] = max(worst["integrate"], gap)
-        bits = all(torch.equal(a, b) for a, b in zip(vk, vp) if a is not None)
+            kept.append(fuse_checked(vk, vp, depths_[i], c, poses_[i], cfg_, start, fits)[0])
+        gap = bits_of(vk, vp, f"the integrate (slab {cfg_.integrate_slab}, color {color})")
         return vk, {"volume": cfg_.resolution, "slab": cfg_.integrate_slab, "color": color, "max_abs_err": gap,
-                    "bit_identical": bits, "observed_voxels": int((vk.weight > 0).sum()), "slab_fits": fits_n}
+                    "bit_identical": True, "observed_voxels": int((vk.weight > 0).sum()), "slab_fits": fits_n,
+                    "visited_share": kept}
 
     vol, full_case = fuse_both(cfg, False)
     _, slab_case = fuse_both(cfg._replace(integrate_slab=96), False, atlas_depths[:10], atlas_poses[:10])
@@ -867,18 +1080,72 @@ def dense_phases(ctx) -> dict:
     sk = tsdf_mod.TsdfVolume(torch.ones((nx, 128, 128), device=dev), torch.zeros((nx, 128, 128), device=dev))
     sp = tsdf_mod.clone_volume(sk)
     for i in range(depths.shape[0]):
-        pcw_i = se3.inverse(poses[i])
-        tsdf_kernels.fuse_block(sk, depths[i], None, pcw_i, intr, cfg, x0=x0)
-        tsdf_kernels.fuse_block_reference(sp, depths[i], None, pcw_i, intr, cfg, x0=x0)
-    torch.cuda.synchronize()
-    x_gap = max((a - b).abs().max().item() for a, b in zip(sk, sp) if a is not None)
-    check(x_gap <= 1e-6 and torch.equal(sk.weight > 0, sp.weight > 0), f"tsdf_kernels: x-slab gap {x_gap}")
+        fuse_checked(sk, sp, depths[i], None, poses[i], cfg, x0=x0)
+    x_gap = bits_of(sk, sp, "the x-slab from x0 = 64")
     check(torch.equal(sk.tsdf, vol.tsdf[x0 : x0 + nx]) and torch.equal(sk.weight, vol.weight[x0 : x0 + nx]),
           "tsdf_kernels: the x-slab differs from the whole volume's planes")
-    worst["integrate"] = max(worst["integrate"], x_gap)
-    x_slab_case = {"volume": cfg.resolution, "x0": x0, "planes": nx, "max_abs_err": x_gap,
-                   "bit_identical": all(torch.equal(a, b) for a, b in zip(sk, sp) if a is not None),
-                   "equals_whole_volume_planes": True, "observed_voxels": int((sk.weight > 0).sum())}
+    # A slab of 37 planes from x0 = 61, off the bricks' boundaries.
+    sk = tsdf_mod.TsdfVolume(torch.ones((37, 128, 128), device=dev), torch.zeros((37, 128, 128), device=dev))
+    sp = tsdf_mod.clone_volume(sk)
+    for i in range(depths.shape[0]):
+        fuse_checked(sk, sp, depths[i], None, poses[i], cfg, x0=61)
+    bits_of(sk, sp, "the x-slab from x0 = 61")
+    x_slab_case = {"volume": cfg.resolution, "x0": [x0, 61], "planes": [nx, 37], "max_abs_err": x_gap,
+                   "bit_identical": True, "equals_whole_volume_planes": True,
+                   "observed_voxels": int((sk.weight > 0).sum())}
+
+    # Adversarial poses (adversarial_poses: brick corners and faces along the
+    # axes, grazing, outside looking in, tilted) at V = 40, 48, 96, 128 of
+    # the 4.8 m cube, the scene rendered with 5% NaN holes; a frame without
+    # valid depth and a closed gate leave the volume bit-identical.
+    adversarial = []
+    g = torch.Generator(device=dev).manual_seed(14)
+    scene = synthetic.default_scene(seed=0, device=dev)
+    for v_ in (40, 48, 96, 128):
+        cfg_v = tsdf_mod.sized_config(resolution=v_, voxel_size=4.8 / v_)
+        adv = torch.from_numpy(adversarial_poses(cfg_v, 32, seed=v_)).to(dev)
+        vk = tsdf_mod.init_volume(cfg_v, device=dev)
+        vp = tsdf_mod.clone_volume(vk)
+        kept = []
+        for P_ in adv:
+            d = synthetic.render_depth(intr, P_, scene)
+            d = torch.where(torch.rand(d.shape, generator=g, device=dev) < 0.05, float("nan"), d).contiguous()
+            kept.append(fuse_checked(vk, vp, d, None, P_, cfg_v)[0])
+        adversarial.append({"volume": v_, "poses": len(adv), "visited_share_mean": statistics.mean(kept),
+                            "max_abs_err": bits_of(vk, vp, f"the integrate at {v_}^3 over adversarial poses"),
+                            "bit_identical": True, "observed_voxels": int((vk.weight > 0).sum())})
+    held = {}
+    for name, d, gate in (("no valid depth", torch.full((h, w), float("nan"), device=dev), None),
+                          ("zeros and beyond max_depth", torch.where(depths[0] > 2.0, 20.0, 0.0).contiguous(), None),
+                          ("closed gate", depths[0], torch.zeros((), dtype=torch.bool, device=dev))):
+        vk, vp = tsdf_mod.clone_volume(vol), tsdf_mod.clone_volume(vol)
+        kept, _ = fuse_checked(vk, vp, d, None, poses[0], cfg, gate=gate)
+        bits_of(vk, vp, name)
+        check(kept == 0.0 and torch.equal(vk.tsdf, vol.tsdf) and torch.equal(vk.weight, vol.weight),
+              f"tsdf_kernels: {name} changed the volume or kept bricks")
+        held[name] = {"visited_share": kept, "volume_unchanged": True}
+
+    # The slot entry: S = 4 slots with gates (1, 0, 1, 1), three steps, one
+    # launch each, against a launch per slot.
+    n_s = 4
+    slots = tsdf_mod.TsdfVolume(torch.ones((n_s, 128, 128, 128), device=dev),
+                                torch.zeros((n_s, 128, 128, 128), device=dev))
+    single = tsdf_mod.clone_volume(slots)
+    slot_gates = torch.tensor([True, False, True, True], device=dev)
+    for f in range(3):
+        ds = depths[f : f + n_s].contiguous()
+        ps = torch.stack([se3.inverse(P_) for P_ in poses[f : f + n_s]]).contiguous()
+        before = dict(tsdf_kernels.LAUNCHES)
+        tsdf_kernels.fuse_blocks(slots, ds, None, ps, intr, cfg, gates=slot_gates)
+        check(tsdf_kernels.LAUNCHES["tsdf_integrate"] == before["tsdf_integrate"] + 1, "tsdf_kernels: slot launches")
+        for i in range(n_s):
+            tsdf_kernels.fuse_block(tsdf_mod.TsdfVolume(single.tsdf[i], single.weight[i]), ds[i], None, ps[i], intr,
+                                    cfg, gate=slot_gates[i])
+    torch.cuda.synchronize()
+    check(torch.equal(slots.tsdf, single.tsdf) and torch.equal(slots.weight, single.weight),
+          "tsdf_kernels: the slot entry differs from a launch per slot")
+    check(torch.equal(slots.weight[1], torch.zeros_like(slots.weight[1])), "tsdf_kernels: a closed slot changed")
+    slot_case = {"slots": n_s, "gates": [1, 0, 1, 1], "steps": 3, "bit_identical_to_single_launches": True}
     check(slab_case["slab_fits"] > 0, "tsdf_kernels: the slab window never engaged")
     _, color_case = fuse_both(cfg, True)
 
@@ -908,15 +1175,21 @@ def dense_phases(ctx) -> dict:
         ray_cases.append({"case": name, "volume": 128, "hits": int(hit.sum()), "max_abs_err": gap,
                           "bit_identical": True})
 
-    def integrate_bound(cfg_, vol_, depth, pose):
-        """Bytes: the frame read once, tsdf and weight read and written at
-        each voxel this frame updates; operations: ~25 per voxel visited
-        (coordinates, projection, gates) and ~10 per update."""
-        before = tsdf_mod.clone_volume(vol_)
-        tsdf_mod.integrate(vol_, depth, pose, intr, cfg_)
-        upd = int(((vol_.weight != before.weight) | (vol_.tsdf != before.tsdf)).sum())
-        v3 = cfg_.resolution ** 3
-        return ctx.bound(depth.numel() * 4 + upd * 16, v3 * 25 + upd * 10), upd
+    def integrate_stats(cfg_, vol_, depth, pose):
+        """One frame fused into a copy of vol_ by the kernel and the plain
+        version (bit-identical, the kept bricks as fuse_checked holds them)
+        and the integrate's bound for it: bytes, the frame read once and
+        tsdf and weight read and written at each voxel the update predicate
+        takes (counted where a copy with zero weights changes weight, so a
+        saturated volume counts in full); ~10 f32 operations each. Returns
+        ((bound ms, what bounds it), the stats for the phase line)."""
+        vk, vp = tsdf_mod.clone_volume(vol_), tsdf_mod.clone_volume(vol_)
+        kept, upd = fuse_checked(vk, vp, depth, None, pose, cfg_)
+        bits_of(vk, vp, f"the integrate at {cfg_.resolution}^3")
+        del vk, vp
+        return ctx.bound(depth.numel() * 4 + upd * 16, upd * 10), {
+            "updated_voxels": upd, "updated_share": upd / cfg_.resolution ** 3, "visited_share": kept,
+            "bit_identical": True}
 
     def raycast_bound(cfg_, out):
         """Gathers: per ray the start sample and one per march step up to its
@@ -954,13 +1227,37 @@ def dense_phases(ctx) -> dict:
     timing = {}
     ik, ip = ctx.turns(lambda: tsdf_kernels.fuse_block_reference(vol, depths[-1], None, pcw, intr, cfg),
                        lambda: tsdf_kernels.fuse_block(vol, depths[-1], None, pcw, intr, cfg), 3, 50)
-    (ib, ib_by), upd = integrate_bound(cfg, tsdf_mod.clone_volume(vol), depths[-1], T)
+    (ib, ib_by), istats = integrate_stats(cfg, vol, depths[-1], T)
+    # The tile map and the cull against their plain versions (tiles equal,
+    # the kept bricks as a set equal to the twin's), the plain versions
+    # timed with events; the kernels alone in phase 27 (CUDA graphs).
+    d_last = depths[-1][None]
+    count = torch.empty((1,), dtype=torch.int32, device=dev)
+    tiles_k, tiles_p = tsdf_kernels.depth_tiles(d_last, cfg, count), tsdf_kernels.depth_tiles_reference(d_last, cfg)
+    kept_k = tsdf_kernels.cull_bricks(pcw[None], tiles_k, count, intr, cfg, h, w)[: int(count.item())]
+    mask_p = tsdf_kernels.brick_mask_reference(pcw[None], intr, cfg, tiles_p, h, w).reshape(-1)
+    check(torch.equal(tiles_k, tiles_p), "tsdf_kernels: the tile map differs from its plain version")
+    check(torch.equal(torch.sort(kept_k).values, torch.nonzero(mask_p)[:, 0]),
+          "tsdf_kernels: the cull's brick list differs from its plain twin")
+    tp = ctx.time_ms(lambda: tsdf_kernels.depth_tiles_reference(d_last, cfg), 20)
+    cp = ctx.time_ms(lambda: tsdf_kernels.brick_mask_reference(pcw[None], intr, cfg, tiles_p, h, w), 5)
+    n_bricks = mask_p.numel()
+    tiles_bound = ctx.bound(d_last.numel() * 4 + tiles_p.numel() * 4, d_last.numel() * 3)
+    # The cull's bytes: the pose, the tile map, the kept bricks' list entries
+    # and their count; its operations: ~40 f64 per corner, 8 corners a brick.
+    c_bytes, c_ops = 64 + tiles_p.numel() * 4 + kept_k.numel() * 8 + 4, n_bricks * 8 * 40
+    t_b, t_o = c_bytes / HBM_BYTES_PER_S * 1e3, c_ops / F64_FLOPS_PER_S * 1e3
+    cull_row = {"max_abs_err": 0.0, "ms": None, "plain_ms": cp, "bound_ms": max(t_b, t_o),
+                "bound_by": "bytes" if t_b >= t_o else "operations"}
+    tiles_row = {"max_abs_err": 0.0, "ms": None, "plain_ms": tp, "bound_ms": tiles_bound[0],
+                 "bound_by": tiles_bound[1]}
     rk, rp = ctx.turns(
         lambda: tsdf_kernels.march_reference(field, T, intr, cfg, cfg.num_steps, subvoxel_iters=cfg.subvoxel_iters),
         lambda: tsdf_kernels.march(field, T, intr, cfg, cfg.num_steps, subvoxel_iters=cfg.subvoxel_iters), 2, 20)
     (rb, rb_by), gathers = raycast_bound(cfg, tsdf_mod.raycast(vol, T, intr, cfg))
     timing[128] = {"integrate_ms": ik, "integrate_plain_ms": ip, "integrate_bound_ms": ib,
-                   "integrate_bound_by": ib_by, "updated_voxels": upd, "raycast_ms": rk, "raycast_plain_ms": rp,
+                   "integrate_bound_by": ib_by, **istats,
+                   "raycast_ms": rk, "raycast_plain_ms": rp,
                    "raycast_bound_ms": rb, "raycast_bound_by": rb_by, "raycast_gathers": gathers,
                    **march_cases(cfg, vol)}
 
@@ -972,20 +1269,20 @@ def dense_phases(ctx) -> dict:
     field512 = tsdf_mod.march_field(vol512)
     ik5, ip5 = ctx.turns(lambda: tsdf_kernels.fuse_block_reference(vol512, depths[-1], None, pcw, intr, cfg512),
                          lambda: tsdf_kernels.fuse_block(vol512, depths[-1], None, pcw, intr, cfg512), 1, 10)
-    (ib5, ib5_by), upd5 = integrate_bound(cfg512, tsdf_mod.clone_volume(vol512), depths[-1], T)
+    (ib5, ib5_by), istats5 = integrate_stats(cfg512, vol512, depths[-1], T)
     rk5, rp5 = ctx.turns(
         lambda: tsdf_kernels.march_reference(field512, T, intr, cfg512, cfg512.num_steps, subvoxel_iters=1),
         lambda: tsdf_kernels.march(field512, T, intr, cfg512, cfg512.num_steps, subvoxel_iters=1), 1, 10)
     out512 = tsdf_mod.raycast(vol512, T, intr, cfg512)
     (rb5, rb5_by), gathers5 = raycast_bound(cfg512, out512)
     timing[512] = {"integrate_ms": ik5, "integrate_plain_ms": ip5, "integrate_bound_ms": ib5,
-                   "integrate_bound_by": ib5_by, "updated_voxels": upd5, "raycast_ms": rk5,
+                   "integrate_bound_by": ib5_by, **istats5, "raycast_ms": rk5,
                    "raycast_plain_ms": rp5, "raycast_bound_ms": rb5, "raycast_bound_by": rb5_by,
                    "raycast_gathers": gathers5, "hits": int((out512 > 0).sum()),
                    **march_cases(cfg512, vol512)}
     del vol512, field512
     emit("tsdf_kernels", frame=[h, w], integrate_cases=[full_case, slab_case, color_case, x_slab_case],
-         raycast_cases=ray_cases,
+         adversarial=adversarial, held=held, slots=slot_case, raycast_cases=ray_cases,
          timing=timing, card=card)
 
     # ---- 14. tsdf: Tracker(method="tsdf") at 640x480 (main path) ------------
@@ -1162,6 +1459,8 @@ def dense_phases(ctx) -> dict:
     return {
         "tsdf_integrate": {"max_abs_err": worst["integrate"], "ms": ik, "plain_ms": ip, "bound_ms": ib,
                            "bound_by": ib_by},
+        "tsdf_depth_tiles": tiles_row,
+        "tsdf_cull": cull_row,
         "tsdf_raycast": {"max_abs_err": worst["raycast"], "ms": rk, "plain_ms": rp, "bound_ms": rb,
                          "bound_by": rb_by, "gathers": gathers},
         "atlas": {"before": atlas_before, "loops": loops, "poses": [np.array(T) for T in loop_atlas.trajectory.poses]},
@@ -1479,7 +1778,7 @@ def serving_phases(ctx) -> None:
                                     [walk] * 4)
     tgot = ctx.read_counts()
     td = tst["dispatches"]
-    ctx.check_counts(tgot, "serve_tsdf", levels * td, rounds * td, 2 * td, integrates=4 * td, raycasts=4 * td)
+    ctx.check_counts(tgot, "serve_tsdf", levels * td, rounds * td, 2 * td, integrates=td, raycasts=4 * td)
     check(tst["errors"] == 0 and all(r["success"] for rs in trecs for r in rs), f"serve_tsdf: {tst}")
     tates = [ate(trecs[i], walk_poses) for i in range(4)]
     check(max(tates) < ATE_BAR, f"serve_tsdf: ATE rmse {tates}")
@@ -1918,7 +2217,7 @@ def cli_phase(ctx) -> None:
     for name in ("slam-window", "tsdf-window"):
         rec, got, secs = bench(["--pipeline", name, "--batch", "40", "--window", "8"])
         want = ("gn_round", "build_level_packed", "downsample_levels") + (
-            ("tsdf_integrate", "tsdf_raycast") if name == "tsdf-window" else ())
+            ("tsdf_depth_tiles", "tsdf_cull", "tsdf_integrate", "tsdf_raycast") if name == "tsdf-window" else ())
         check(all(got[k] > 0 for k in want), f"rs_benchmark {name}: launches {got}")
         runs[name] = {"record": rec, "launches": got, "seconds_with_setup": secs}
     emit("cli_rs_benchmark", runs=runs, card=card)
@@ -1952,12 +2251,12 @@ def cli_phase(ctx) -> None:
             ("depth", [], 1 + 29, {"levels": levels, "pyramids": 1}),
             ("window8", ["--window", "8"], 8 + 24 + 5, {"levels": levels, "pyramids": 1}),
             ("rgb", ["--rgb", "--frames", "6"], 1 + 5, {"levels": rgbd_levels, "pyramids": 1}),
-            ("tsdf", ["--tsdf", "--frames", "10"], 1 + 9, {"integrates": s})):
+            ("tsdf", ["--tsdf", "--frames", "10"], 1 + 9, {"integrates": 1})):
         r = streams_run(extra)
         if label == "rgb":  # per step: the target pyramid, the source chain, the joint steps
             per = {"levels": rgbd_levels, "gn_rounds": 0, "pyramids": 2, "systems": rgbd_steps}
-        elif label == "tsdf":  # per step: S coarse-to-fine renders, one registration, S integrates
-            per = {"levels": levels, "gn_rounds": rounds, "pyramids": 2, "integrates": s, "raycasts": 2 * s}
+        elif label == "tsdf":  # per step: S coarse-to-fine renders, one registration, one integrate of the S
+            per = {"levels": levels, "gn_rounds": rounds, "pyramids": 2, "integrates": 1, "raycasts": 2 * s}
         else:  # per step: one pyramid of the S new frames, one registration
             per = {"levels": levels, "gn_rounds": rounds, "pyramids": 1}
         want = {k: per.get(k, 0) * n + setup.get(k, 0) for k in set(per) | set(setup)}
@@ -2301,16 +2600,19 @@ def multidevice_phase(ctx) -> None:
 
 
 def kernel_alone_phase(ctx) -> None:
-    """Phase 27: the backbone and the raycast timed alone on the card, each
-    one's calls captured in one CUDA graph and replayed between two events
-    (a small kernel's events otherwise time its launches): factor and apply
-    at n = 64 and 1000 in turns with the previous chain, and the full march
-    and the coarse-to-fine refine march at 640x480 into 128^3. Last of the
+    """Phase 27: the backbone, the raycast and the integrate timed alone on
+    the card, each one's calls captured in one CUDA graph and replayed
+    between two events (a small kernel's events otherwise time its
+    launches): factor and apply at n = 64 and 1000 in turns with the
+    previous chain, the full march and the coarse-to-fine refine march at
+    640x480 into 128^3, and the integrate at 128^3 and 512^3 in turns with
+    its previous design, its tile map alone and with the cull. Last of the
     phases, so that no graph runs before a profiler window. ctx: dev, card,
     graph_ms, intr."""
     import torch
 
     from realsensetracker_tpu_torch.data import synthetic
+    from realsensetracker_tpu_torch.geometry import se3
     from realsensetracker_tpu_torch.kernels import backbone
     from realsensetracker_tpu_torch.kernels import tsdf as tsdf_kernels
     from realsensetracker_tpu_torch.mapping import tsdf as tsdf_mod
@@ -2351,7 +2653,36 @@ def kernel_alone_phase(ctx) -> None:
              "fine": ((field, T, intr, cfg, cfg.refine_steps), dict(z_start=z0, gate=seeded, subvoxel_iters=it))}
     for case, (a, kw) in cases.items():
         rows[f"raycast_{case}_128"] = {"kernel": ctx.graph_ms(lambda: tsdf_kernels.march(*a, **kw), 20)}
+
+    # The integrate (tile map, cull, update) in turns with its previous
+    # design (one thread per voxel of the grid), the last frame into the
+    # volume phase 13 timed, at 128^3 and 512^3; the tile map alone and with
+    # the cull.
+    flat = previous_integrate()
+    pcw = se3.inverse(T).contiguous()
+    d, h, w = depths[-1], intr.height, intr.width
+    for cfg_ in (cfg, tsdf_mod.sized_config(resolution=512, voxel_size=0.01)):
+        vol_ = vol if cfg_ is cfg else tsdf_mod.init_volume(cfg_, device=dev)
+        if cfg_ is not cfg:
+            for i in range(depths.shape[0]):
+                tsdf_mod.integrate(vol_, depths[i], poses[i], intr, cfg_)
+        reps = 50 if cfg_ is cfg else 10
+        ms = {}
+        for name in ("previous", "kernel", "kernel", "previous"):
+            run = (lambda: flat(vol_, d, pcw, intr, cfg_)) if name == "previous" else (
+                lambda: tsdf_kernels.fuse_block(vol_, d, None, pcw, intr, cfg_))
+            ms.setdefault(name, []).append(ctx.graph_ms(run, reps))
+        count = torch.empty((1,), dtype=torch.int32, device=dev)
+        tiles = tsdf_kernels.depth_tiles(d[None], cfg_, count)
+        rows[f"integrate_{cfg_.resolution}"] = {
+            **{k: sum(v) / len(v) for k, v in ms.items()}, "runs": ms,
+            "tile_map": ctx.graph_ms(lambda: tsdf_kernels.depth_tiles(d[None], cfg_, count), 50),
+            "tile_map_and_cull": ctx.graph_ms(lambda: (tsdf_kernels.depth_tiles(d[None], cfg_, count),
+                                                       tsdf_kernels.cull_bricks(pcw[None], tiles, count, intr, cfg_,
+                                                                                h, w)), 50)}
+        del vol_
     emit("kernel_alone", rows=rows, card=ctx.card)
+    return rows
 
 
 def main() -> None:
@@ -2438,10 +2769,12 @@ def main() -> None:
         """levels: level-kernel launches; gn_rounds: association rounds;
         pyramids: downsample launches (one per pyramid or source-level set);
         systems: gn_system launches (joint RGB-D steps); backbones: backbone
-        factor + apply launches; integrates, raycasts: TSDF integrate and
-        raycast-march launches."""
+        factor + apply launches; integrates: TSDF integrates (each one
+        tile-map, one cull and one brick launch, whatever its slots);
+        raycasts: raycast-march launches."""
         want = {"downsample_levels": pyramids, "build_level_packed": levels, "gn_round": gn_rounds,
-                "gn_system": systems, "backbone": backbones, "tsdf_integrate": integrates, "tsdf_raycast": raycasts}
+                "gn_system": systems, "backbone": backbones, "tsdf_depth_tiles": integrates, "tsdf_cull": integrates,
+                "tsdf_integrate": integrates, "tsdf_raycast": raycasts}
         check(got == want, f"{what}: launches {got}, expected {want}")
 
     def bound(nbytes, flops):
@@ -2451,7 +2784,7 @@ def main() -> None:
 
     # ---- 2. build the kernels, one nvcc each, together -------------------
     sources = (downsample.SOURCE, level_kernel.SOURCE, gn_step.SOURCE, backbone.SOURCE, *tsdf_kernels.SOURCES,
-               PREVIOUS_BACKBONE)
+               PREVIOUS_BACKBONE, PREVIOUS_INTEGRATE)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=len(sources)) as pool:
         list(pool.map(build.build, sources))
@@ -3380,7 +3713,11 @@ def main() -> None:
     ))
 
     # ---- 27. kernel_alone: the backbone and the raycast in CUDA graphs ----
-    kernel_alone_phase(types.SimpleNamespace(dev=dev, card=card, graph_ms=graph_ms, intr=intr))
+    alone = kernel_alone_phase(types.SimpleNamespace(dev=dev, card=card, graph_ms=graph_ms, intr=intr))
+    # The integrate's first two kernels alone at 128^3 (CUDA graphs): the
+    # tile map, and the cull as the tile map and the cull less the tile map.
+    dense["tsdf_depth_tiles"]["ms"] = alone["integrate_128"]["tile_map"]
+    dense["tsdf_cull"]["ms"] = alone["integrate_128"]["tile_map_and_cull"] - alone["integrate_128"]["tile_map"]
 
     for name, n in main_launches.items():
         check(n > 0, f"the main paths never launched {name}")
@@ -3401,9 +3738,12 @@ def main() -> None:
     # apply at n = 1000, its bound over f64's peak, with the previous
     # design's time (a chain of n + 2n dependent 6x6 steps), measured in
     # turns in this run, beside it. No PyTorch call computes a gated TSDF
-    # running average or a ray march either; their rows are one integrate
-    # of a 640x480 frame into the default 128^3 volume and one full 640x480
-    # raycast of it, the march's gather count beside its bound.
+    # running average, a valid-depth maximum per tile, a frustum and depth
+    # cull of bricks or a ray march either; their rows are one integrate
+    # (tile map, cull and the update of the kept bricks, with launches) of a
+    # 640x480 frame into the default 128^3 volume, its tile map and cull
+    # alone (CUDA graphs, phase 27), and one full 640x480 raycast of it,
+    # the march's gather count beside its bound.
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": main_launches[name], "max_abs_err": errs[name],
@@ -3420,6 +3760,14 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    if any(os.environ.get(k) != v for k, v in MALLOC_ENV.items()):
-        os.execve(sys.executable, sys.orig_argv, {**os.environ, **MALLOC_ENV})
-    sys.exit(main())
+    args = sys.argv[1:]
+    if len(args) == 2 and args[0] == "--tree-ms":
+        print(json.dumps(tree_host_ms(args[1])), flush=True)
+    elif args[:1] == ["--against"] and (len(args) == 2 or (len(args) == 4 and args[2] == "--rounds")):
+        against(args[1], int(args[3]) if len(args) == 4 else 1)
+    elif args:
+        raise SystemExit(f"chip_smoke: unknown arguments {args}")
+    else:
+        if any(os.environ.get(k) != v for k, v in MALLOC_ENV.items()):
+            os.execve(sys.executable, sys.orig_argv, {**os.environ, **MALLOC_ENV})
+        sys.exit(main())

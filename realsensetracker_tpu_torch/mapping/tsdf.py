@@ -7,10 +7,13 @@ synthetic low-noise depth frame to track against
 (tracking/tsdf_tracker.py).
 
 * ``integrate`` fuses a frame into the volume in place. On CUDA tensors it
-  is one launch of kernels/tsdf.fuse_block (csrc/tsdf_integrate.cu) over
-  the V^3 grid; the slab window (TsdfConfig.integrate_slab) and the
-  caller's gate are device tensors the kernel reads, so no frame waits on
-  the host to decide whether or where it fuses.
+  is kernels/tsdf.fuse_block (csrc/tsdf_integrate.cu): a depth-tile map,
+  a cull of the grid's bricks against the frustum and the frame's depth,
+  and the update of the kept bricks, three launches; the slab window
+  (TsdfConfig.integrate_slab) and the caller's gate are device tensors
+  the kernels read, so no frame waits on the host to decide whether or
+  where it fuses. ``integrate_slots`` fuses S slots' frames with the same
+  three launches (the dense serving slots).
 * ``raycast`` and ``raycast_coarse_to_fine`` march every ray through the
   fused march field, nearest-neighbour, to its first +/- crossing, then
   refine it trilinearly. On CUDA tensors each march is one launch of
@@ -277,6 +280,28 @@ def integrate(vol: TsdfVolume, depth: torch.Tensor, pose_world_from_cam: torch.T
         return sharded.integrate(vol, depth, pose_world_from_cam, intr, cfg, color=color, gate=gate)
     _integrate_planes(vol, depth, pose_world_from_cam, intr, cfg, color, gate, 0)
     return vol
+
+
+def integrate_slots(volume: TsdfVolume, depths: torch.Tensor, poses_world_from_cam: torch.Tensor,
+                    intr: camera.Intrinsics, cfg: TsdfConfig = TsdfConfig(),
+                    gates: torch.Tensor | None = None) -> TsdfVolume:
+    """Fuse S slots' depth frames ((S, H, W) meters, taken at
+    ``poses_world_from_cam`` (S, 4, 4)) into the (S, V, V, V) tsdf and
+    weight planes of ``volume`` IN PLACE, gated per slot by ``gates`` ((S,)
+    bool on the volume's device, None = all open), and return it. One
+    kernels/tsdf.fuse_blocks call: three launches on the card whatever S
+    (tile map, cull, update). Slot i ends bit-identical to integrate() on
+    its planes alone (its pose is inverted alone, as there). The dense
+    serving slots' integrate (parallel/streams.py): depth-only, and without
+    the slab window, which the slots force off as JAX does under vmap."""
+    from realsensetracker_tpu_torch.kernels import tsdf as tsdf_kernels
+
+    if 0 < int(cfg.integrate_slab) < cfg.resolution:
+        raise ValueError("integrate_slots has no slab window: set integrate_slab=0 (parallel/streams.py does)")
+    poses_world_from_cam = poses_world_from_cam.to(torch.float32)
+    pose_cfw = torch.stack([se3.inverse(P) for P in poses_world_from_cam]).contiguous()
+    tsdf_kernels.fuse_blocks(volume, depths.to(torch.float32).contiguous(), None, pose_cfw, intr, cfg, gates=gates)
+    return volume
 
 
 def _integrate_planes(vol, depth, pose_world_from_cam, intr, cfg, color, gate, x0: int) -> None:

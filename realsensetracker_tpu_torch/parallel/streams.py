@@ -21,8 +21,10 @@ slots advance, ``seed`` slots restart at identity, and each returns one
 packed stats row per slot -- one device-to-host copy per dispatch.
 
 The dense slots hold S volumes as (S, V, V, V) planes; each slot renders
-and integrates through kernels/tsdf (S launches of each per step) and its
-volume updates IN PLACE, gated on the device: clone the planes to keep an
+through kernels/tsdf.march (S launches per step), and all S integrate in
+one mapping/tsdf.integrate_slots call (the integrate kernel's slot axis:
+three launches per step, the tile map, the cull and the update). The
+volumes update IN PLACE, gated on the device: clone the planes to keep an
 old state.
 """
 
@@ -457,9 +459,7 @@ def init_tsdf_streams(
     first_depths = depth_to_meters(first_depths, depth_scale)
     s, dev = first_depths.shape[0], first_depths.device
     state = blank_tsdf_streams(intr, vol_cfg, num_streams=s, device=dev)
-    eye = se3.identity(device=dev)
-    for i in range(s):
-        tsdf_mod.integrate(_slot_volume(state.volume, i), first_depths[i], eye, intr, vol_cfg)
+    tsdf_mod.integrate_slots(state.volume, first_depths, _eye(s, dev), intr, vol_cfg)
     return state._replace(
         initialized=torch.ones(s, dtype=torch.bool, device=dev),
         frame_count=torch.ones(s, dtype=torch.int32, device=dev),
@@ -490,9 +490,7 @@ def _tsdf_streams_impl(state, depths, intr, vol_cfg, icp_cfg, min_inlier_fractio
     T, ok, rmse, inlier = _tsdf_register(state, depths, state.poses, no_seed, intr, vol_cfg, icp_cfg,
                                          min_inlier_fraction)
     poses = torch.where(ok[:, None, None], se3.orthonormalize(se3.compose(state.poses, T)), state.poses)
-    gate = ok & fuses
-    for i in range(s):
-        tsdf_mod.integrate(_slot_volume(state.volume, i), depths[i], poses[i], intr, vol_cfg, gate=gate[i])
+    tsdf_mod.integrate_slots(state.volume, depths, poses, intr, vol_cfg, gates=ok & fuses)
     new_state = TsdfStreamState(poses, state.volume, state.initialized, state.frame_count + 1)
     return new_state, StreamStepResult(poses, ok, rmse, inlier)
 
@@ -507,8 +505,9 @@ def step_tsdf_streams(
     depth_scale: float = 1.0,
 ) -> tuple[TsdfStreamState, StreamStepResult]:
     """Advance S dense frame-to-model trackers one frame: S renders, one
-    batched registration, S integrates gated on the device (failure hold,
-    integrate_every cadence) -- the same results as per-slot tracking."""
+    batched registration, one integrate of all S gated on the device
+    (failure hold, integrate_every cadence) -- the same results as
+    per-slot tracking."""
     vol_cfg = _stream_vol_cfg(vol_cfg)
     return _tsdf_streams_impl(state, depth_to_meters(depths, depth_scale), intr, vol_cfg, icp_cfg,
                               min_inlier_fraction)
@@ -575,9 +574,7 @@ def _tsdf_masked_impl(state, depths, active, seed, intr, vol_cfg, icp_cfg, min_i
     seeding = active & seed
     state.volume.tsdf.masked_fill_(_bcast(seeding, state.volume.tsdf), 1.0)
     state.volume.weight.masked_fill_(_bcast(seeding, state.volume.weight), 0.0)
-    gate = active & (seed | (ok & fuses))
-    for i in range(s):
-        tsdf_mod.integrate(_slot_volume(state.volume, i), depths[i], pose_cand[i], intr, vol_cfg, gate=gate[i])
+    tsdf_mod.integrate_slots(state.volume, depths, pose_cand, intr, vol_cfg, gates=active & (seed | (ok & fuses)))
     return TsdfStreamState(poses, state.volume, initialized, count), stats
 
 

@@ -39,10 +39,17 @@ csrc/tsdf_raycast.cu) are held to their plain torch versions at V = 48 and
 128, full pass, slab window and colored: tsdf and weight within 1e-6 (they
 compute the same operations in the same order, so bit for bit is
 expected) with the update masks identical, a closed gate leaving the volume
-bit-identical; the raycast with the hit masks identical and depth within
-1e-5 where both hit, full and coarse-to-fine, and at 128^3 and 512^3 bit
-for bit (full, coarse-to-fine, a per-ray z_start, a gate, no steps);
-Tracker(method="tsdf") on the card within 1e-4 of the CPU.
+bit-identical; the brick integrate bit for bit at V = 40, 48, 96 and 128
+(full, slab window, colored, an x-slab off the brick boundaries, 32
+adversarial poses each), the cull's list (cull_bricks) equal to the plain
+twin's bricks (brick_mask_reference) and those holding every updated
+voxel, a frame without valid depth or a closed gate keeping no brick, and
+the slot entry (fuse_blocks, one launch of each kernel for S slots with
+mixed gates) bit-identical to a launch per slot; the raycast with the hit
+masks identical and depth within 1e-5 where both hit, full and
+coarse-to-fine, and at 128^3 and 512^3 bit for bit (full, coarse-to-fine,
+a per-ray z_start, a gate, no steps); Tracker(method="tsdf") on the card
+within 1e-4 of the CPU.
 
 Host I/O: 64 u16 frames through FrameStream(prefetch=2), each read by the
 consumer's kernels behind a long matmul, equal to their host copies (the
@@ -874,6 +881,139 @@ def test_tsdf_raycast_kernel_bit_identical(cuda, v, case):
     assert share == 0.0 if case == "no_steps" else share > (0.15 if case == "gate" else 0.3)
 
 
+def _fuse_checked(vk, vp, depth, color, pose_wc, intr, cfg, gate=None, start=None, fits=None, x0=0):
+    """One frame through the kernel (vk) and its plain version (vp); the
+    cull launched alone on the same frame (depth_tiles, cull_bricks) lists
+    the plain twin's bricks, and those hold every brick whose voxels the
+    update predicate takes (on a copy with zero weights). Returns the
+    twin's (nbx, nby, nbz) mask."""
+    nx = vk.tsdf.shape[0]
+    h, w = depth.shape
+    pcw = se3.inverse(pose_wc).contiguous()
+    zero = tsdf_mod.TsdfVolume(*(None if a is None else (torch.zeros_like(a) if i % 2 else a.clone())
+                                 for i, a in enumerate(vp)))
+    tsdf_kernels.fuse_block(vk, depth, color, pcw, intr, cfg, gate=gate, start=start, fits=fits, x0=x0)
+    tsdf_kernels.fuse_block_reference(vp, depth, color, pcw, intr, cfg, gate, start, fits, x0)
+    tsdf_kernels.fuse_block_reference(zero, depth, color, pcw, intr, cfg, gate, start, fits, x0)
+    one = lambda t: None if t is None else t[None]  # noqa: E731
+    count = torch.empty((1,), dtype=torch.int32, device=depth.device)
+    tiles = tsdf_kernels.depth_tiles(depth[None], cfg, count)
+    kept = tsdf_kernels.cull_bricks(pcw[None], tiles, count, intr, cfg, h, w, x0, nx, one(gate), one(start),
+                                    one(fits))[: int(count.item())]
+    twin = tsdf_kernels.brick_mask_reference(pcw[None], intr, cfg, tsdf_kernels.depth_tiles_reference(depth[None], cfg),
+                                             h, w, x0, nx, one(gate), one(start), one(fits))[0]
+    assert torch.equal(torch.sort(kept).values, torch.nonzero(twin.reshape(-1))[:, 0])
+    assert not bool((tsdf_kernels.bricks_holding(zero.weight > 0) & ~twin).any())
+    return twin
+
+
+def _bit_identical(vk, vp):
+    torch.cuda.synchronize()
+    return all(torch.equal(a, b) for a, b in zip(vk, vp) if a is not None)
+
+
+@pytest.mark.parametrize("mode", ["full", "slab", "color", "x_slab"])
+@pytest.mark.parametrize("v", [40, 48, 96, 128])
+def test_tsdf_integrate_bit_identical(cuda, v, mode):
+    """The brick integrate bit for bit equal to fuse_block_reference, full,
+    slab window, colored and on an x-slab off the brick boundaries."""
+    cfg, intr, depths, colors, poses = _tsdf_setup(v, cuda, color=mode == "color",
+                                                   slab=3 * v // 4 if mode == "slab" else 0)
+    x0, nx = (v // 3 + 1, v // 2 - 1) if mode == "x_slab" else (0, v)
+    vk = tsdf_mod.TsdfVolume(*(None if a is None else a[x0 : x0 + nx].clone()
+                               for a in tsdf_mod.init_volume(cfg, with_color=mode == "color", device=cuda)))
+    vp = tsdf_mod.clone_volume(vk)
+    for i in range(depths.shape[0]):
+        start = fits = None
+        if mode == "slab":
+            start, fits = tsdf_mod.slab_window(depths[i], poses[i], intr, cfg)
+        _fuse_checked(vk, vp, depths[i], None if colors is None else colors[i], poses[i], intr, cfg, None, start,
+                      fits, x0)
+    assert _bit_identical(vk, vp) and int((vk.weight > 0).sum()) > 100
+
+
+@pytest.mark.parametrize("v", [40, 48, 96, 128])
+def test_tsdf_integrate_adversarial_poses(cuda, v):
+    """32 poses of chip_smoke.adversarial_poses (on brick corners and faces
+    along the axes, grazing, outside looking in, tilted), the scene rendered
+    at 160x120 with 5% NaN holes: bit-identical, the kept bricks the twin's
+    and sound."""
+    from chip_smoke import adversarial_poses
+
+    cfg = tsdf_mod.sized_config(resolution=v, voxel_size=4.8 / v)
+    intr = _intr(120, 160)
+    sc = synthetic.default_scene(seed=3, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(v)
+    vk = tsdf_mod.init_volume(cfg, device=cuda)
+    vp = tsdf_mod.clone_volume(vk)
+    for T in torch.from_numpy(adversarial_poses(cfg, 32, seed=v)).to(cuda):
+        d = synthetic.render_depth(intr, T, sc)
+        d = torch.where(torch.rand(d.shape, generator=g, device=cuda) < 0.05, float("nan"), d).contiguous()
+        _fuse_checked(vk, vp, d, None, T, intr, cfg)
+    assert _bit_identical(vk, vp) and int((vk.weight > 0).sum()) > 200
+
+
+@pytest.mark.parametrize("case", ["nan", "zero", "beyond", "gate"])
+@pytest.mark.parametrize("v", [48, 128])
+def test_tsdf_integrate_without_valid_depth_or_gate(cuda, v, case):
+    """A frame with no valid depth, or a closed gate, keeps no brick and
+    leaves the volume bit-identical."""
+    cfg, intr, depths, colors, poses = _tsdf_setup(v, cuda, color=True)
+    vol, _ = _fuse_both(cfg, intr, depths[:2], colors[:2], poses[:2], cuda)
+    d = {"nan": torch.full_like(depths[2], float("nan")), "zero": torch.zeros_like(depths[2]),
+         "beyond": torch.full_like(depths[2], 2.0 * cfg.max_depth), "gate": depths[2]}[case]
+    gate = torch.tensor(case != "gate", device=cuda)
+    vk, vp = tsdf_mod.clone_volume(vol), tsdf_mod.clone_volume(vol)
+    kept = _fuse_checked(vk, vp, d, colors[2], poses[2], intr, cfg, gate)
+    assert not bool(kept.any()) and _bit_identical(vk, vol) and _bit_identical(vp, vol)
+
+
+@pytest.mark.parametrize("mode", ["depth", "color", "slab"])
+def test_tsdf_fuse_blocks_equals_single_launches(cuda, mode):
+    """The slot entry: S = 4 slots with gates (1, 0, 1, 1), one launch of
+    each kernel per step, bit-identical to a launch per slot."""
+    s = 4
+    cfg, intr, depths, colors, poses = _tsdf_setup(96, cuda, n=s + 2, color=mode == "color",
+                                                   slab=72 if mode == "slab" else 0)
+    slots = tsdf_mod.TsdfVolume(*(None if a is None else a.expand(s, *a.shape).clone()
+                                  for a in tsdf_mod.init_volume(cfg, with_color=mode == "color", device=cuda)))
+    single = tsdf_mod.clone_volume(slots)
+    gates = torch.tensor([True, False, True, True], device=cuda)
+    for f in range(3):
+        d, P = depths[f : f + s].contiguous(), poses[f : f + s]
+        pcw = torch.stack([se3.inverse(T) for T in P]).contiguous()
+        c = None if colors is None else colors[f : f + s].contiguous()
+        starts = fits = None
+        if mode == "slab":
+            windows = [tsdf_mod.slab_window(d[i], P[i], intr, cfg) for i in range(s)]
+            starts, fits = torch.stack([a for a, _ in windows]), torch.stack([b for _, b in windows])
+        before = dict(tsdf_kernels.LAUNCHES)
+        tsdf_kernels.fuse_blocks(slots, d, c, pcw, intr, cfg, gates=gates, starts=starts, fits=fits)
+        assert {k: tsdf_kernels.LAUNCHES[k] - before[k] for k in before} == {
+            "tsdf_depth_tiles": 1, "tsdf_cull": 1, "tsdf_integrate": 1, "tsdf_raycast": 0}
+        for i in range(s):
+            tsdf_kernels.fuse_block(tsdf_mod.TsdfVolume(*(None if a is None else a[i] for a in single)), d[i],
+                                    None if c is None else c[i], pcw[i], intr, cfg, gate=gates[i],
+                                    start=None if starts is None else starts[i], fits=None if fits is None else fits[i])
+    assert _bit_identical(slots, single)
+    assert int((slots.weight[0] > 0).sum()) > 200 and not bool((slots.weight[1] > 0).any())
+
+
+def test_tsdf_integrate_slots_equals_integrate_per_slot(cuda):
+    """mapping/tsdf.integrate_slots (the dense serving slots' call) against
+    integrate() on each slot's planes."""
+    s = 3
+    cfg, intr, depths, _, poses = _tsdf_setup(64, cuda, n=s)
+    slots = tsdf_mod.TsdfVolume(torch.ones((s, 64, 64, 64), device=cuda), torch.zeros((s, 64, 64, 64), device=cuda))
+    single = tsdf_mod.clone_volume(slots)
+    gates = torch.tensor([True, True, False], device=cuda)
+    tsdf_mod.integrate_slots(slots, depths, poses, intr, cfg, gates=gates)
+    for i in range(s):
+        tsdf_mod.integrate(tsdf_mod.TsdfVolume(single.tsdf[i], single.weight[i]), depths[i], poses[i], intr, cfg,
+                           gate=gates[i])
+    assert _bit_identical(slots, single)
+
+
 def test_tsdf_tracker_on_cuda_matches_cpu(cuda):
     intr = _intr(120, 160)
     depths, _ = synthetic.render_trajectory(intr, 6, seed=2, step_scale=0.01)
@@ -885,7 +1025,9 @@ def test_tsdf_tracker_on_cuda_matches_cpu(cuda):
         res = [tracker.process(d) for d in depths]
         assert all(r.success for r in res)
         if device != "cpu":
-            assert tsdf_kernels.LAUNCHES == {"tsdf_integrate": before["tsdf_integrate"] + 6,
+            assert tsdf_kernels.LAUNCHES == {"tsdf_depth_tiles": before["tsdf_depth_tiles"] + 6,
+                                             "tsdf_cull": before["tsdf_cull"] + 6,
+                                             "tsdf_integrate": before["tsdf_integrate"] + 6,
                                              "tsdf_raycast": before["tsdf_raycast"] + 5}
         poses.append(np.stack([r.pose for r in res]))
     np.testing.assert_allclose(poses[1], poses[0], atol=1e-4)

@@ -14,9 +14,12 @@ seeding rows (identity pose and relative, rmse 0, inlier 1) and the held
 rows of inactive slots exact; success flags equal; RGB-D at the same 1e-4;
 the port's window against its own per-step run within 1e-6; dense volumes
 through tests/torch_parity.tracked_volumes_close (1e-4, at most 0.01% of
-voxels parted); an inactive dense slot bit-identical.
+voxels parted); an inactive dense slot bit-identical; the slots' one
+integrate call (integrate_slots) bit-identical to integrate() per slot and
+within volumes_close of JAX's integrate vmapped over the slots.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -26,6 +29,7 @@ from realsensetracker_tpu.align import projective as jproj
 from realsensetracker_tpu.align import rgbd as jrgbd
 from realsensetracker_tpu.data import synthetic as jsyn
 from realsensetracker_tpu.geometry import camera as jcam
+from realsensetracker_tpu.mapping import tsdf as jtsdf
 from realsensetracker_tpu.mapping.tsdf import TsdfConfig as JTsdfConfig
 from realsensetracker_tpu.parallel import streams as jst
 from realsensetracker_tpu_torch import interop
@@ -33,7 +37,7 @@ from realsensetracker_tpu_torch.geometry import se3
 from realsensetracker_tpu_torch.mapping import tsdf as ptsdf
 from realsensetracker_tpu_torch.parallel import streams as pst
 from realsensetracker_tpu_torch.tracking.tsdf_tracker import TsdfTracker
-from tests.torch_parity import tracked_volumes_close, twist_gap
+from tests.torch_parity import tracked_volumes_close, twist_gap, volumes_close
 
 JINTR = jcam.Intrinsics(fx=100.0, fy=100.0, cx=49.5, cy=37.0, width=100, height=75)
 JCFG = jproj.ProjectiveIcpConfig(iters=(5, 5, 6), samples=1024)
@@ -477,6 +481,44 @@ class TestTsdfStreams:
             _rows_close(jstats, pstats, seeding=on & seed)
         for i in range(S3):
             tracked_volumes_close(_slot(js.volume, i), ptsdf.TsdfVolume(ps.volume.tsdf[i], ps.volume.weight[i]))
+
+
+def test_integrate_slots_matches_per_slot_and_jax_vmap():
+    """The dense slots' one integrate call (mapping/tsdf.integrate_slots,
+    kernels/tsdf.fuse_blocks_reference on the CPU) over S3 slots with gates
+    (1, 0), two frames of each slot's walk at their poses: bit-identical to
+    integrate() on each slot's planes, and equal to JAX's integrate vmapped
+    over the slots with the same gates (volumes_close: weights equal, tsdf
+    within 1e-6)."""
+    frames, poses = [], []
+    for i in range(S3):
+        d, P = jsyn.render_trajectory(JTSDF_INTR, 2, scene=jsyn.default_scene(seed=30 + i), seed=i, step_scale=0.01)
+        frames.append(np.asarray(d, np.float32))
+        poses.append(np.asarray(P, np.float32))
+    frames, poses = np.stack(frames, 1), np.stack(poses, 1)  # (2, S3, H, W), (2, S3, 4, 4)
+    gates = np.array([True, False])
+    v = VOL.resolution
+    slots = ptsdf.TsdfVolume(torch.ones((S3, v, v, v)), torch.zeros((S3, v, v, v)))
+    per = ptsdf.clone_volume(slots)
+    one = jtsdf.init_volume(JVOL)
+    jvol = jtsdf.TsdfVolume(jnp.stack([one.tsdf] * S3), jnp.stack([one.weight] * S3))
+
+    @jax.jit
+    @jax.vmap
+    def jstep(vol, d, P, g):
+        new = jtsdf.integrate(vol, d, P, JTSDF_INTR, JVOL)
+        return jtsdf.TsdfVolume(jnp.where(g, new.tsdf, vol.tsdf), jnp.where(g, new.weight, vol.weight))
+
+    for f in range(2):
+        ptsdf.integrate_slots(slots, t(frames[f]), t(poses[f]), TSDF_INTR, VOL, gates=t(gates))
+        for i in range(S3):
+            ptsdf.integrate(ptsdf.TsdfVolume(per.tsdf[i], per.weight[i]), t(frames[f, i]), t(poses[f, i]),
+                            TSDF_INTR, VOL, gate=t(gates[i]))
+        jvol = jstep(jvol, jnp.asarray(frames[f]), jnp.asarray(poses[f]), jnp.asarray(gates))
+    assert torch.equal(slots.tsdf, per.tsdf) and torch.equal(slots.weight, per.weight)
+    assert int((slots.weight[0] > 0).sum()) > 500 and not bool((slots.weight[1] > 0).any())
+    for i in range(S3):
+        volumes_close(_slot(jvol, i), ptsdf.TsdfVolume(slots.tsdf[i], slots.weight[i]))
 
 
 def _slot(jvol, i):

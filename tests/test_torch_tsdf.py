@@ -9,6 +9,15 @@ color within 1e-6 with weights and update masks equal; raycast (full and
 coarse-to-fine) hit masks equal and depth within 1e-5; render_model_rgbd
 within 1e-5; the three surface extractions with equal masks and order and
 values within 1e-6 on the same volume.
+
+The integrate kernel's brick cull is held sound through its plain twin
+(kernels/tsdf.brick_mask_reference): no voxel that _fuse_block's predicate
+updates lies in a culled brick, over hypothesis cases (poses inside,
+outside and on the faces of the volume, along the axes and tilted; frames
+rendered or random with holes, NaN, inf and depth past max_depth; V = 40,
+48, 96; x-slabs, slab windows, colored volumes, closed gates), over
+torch_parity.adversarial_poses and on render_trajectory's 640x480 frames
+into the default 128^3 volume, where it drops more than half the bricks.
 """
 
 import math
@@ -18,11 +27,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import HealthCheck, given, settings
+from hypothesis import strategies as st
 
 from realsensetracker_tpu.mapping import tsdf as J
 from realsensetracker_tpu_torch import interop
 from realsensetracker_tpu_torch.mapping import tsdf as P
-from tests.torch_parity import dense_configs, intrinsics, j32, render_rgbd, volumes_close, walk
+import tests.torch_parity as tests_torch_parity
+from tests.torch_parity import (adversarial_poses, dense_configs, intrinsics, j32, look_at, render, render_rgbd,
+                                volumes_close, walk)
 
 JINTR, INTR = intrinsics(60, 80, 64.0)
 JCFG, CFG = dense_configs()
@@ -297,3 +310,153 @@ def test_raycast_of_a_known_wall():
     assert bool((centre > 0).all())
     assert float((centre - 2.0).abs().max()) < 0.1 * CFG.voxel_size
     assert math.isclose(float(P.march_field(vol).max()), P.UNOBSERVED)
+
+
+# --- the integrate's brick cull (kernels/tsdf.brick_mask_reference) ------------
+
+
+def _cull_and_update(depth, color, pose_wc, intr, cfg, x0=0, nx=None, gate=None, start=None, fits=None):
+    """(the twin's brick mask, the bricks _fuse_block's predicate updates):
+    the update on a copy whose weights are zero, where every updated voxel
+    changes weight."""
+    from realsensetracker_tpu_torch.kernels import tsdf as K
+
+    v = cfg.resolution
+    nx = v if nx is None else nx
+    depth = torch.as_tensor(depth, dtype=torch.float32)
+    pcw = P.se3.inverse(torch.as_tensor(pose_wc, dtype=torch.float32)).contiguous()
+    vol = P.TsdfVolume(torch.ones((nx, v, v)), torch.zeros((nx, v, v)),
+                       *((torch.zeros((nx, v, v, 3)), torch.zeros((nx, v, v))) if color is not None else ()))
+    K.fuse_block_reference(vol, depth, color, pcw, intr, cfg, gate, start, fits, x0)
+    if color is not None:
+        assert not bool(((vol.color_weight > 0) & ~(vol.weight > 0)).any())  # color fuses over a subset
+    one = lambda t: None if t is None else t[None]  # noqa: E731
+    mask = K.brick_mask_reference(pcw[None], intr, cfg, K.depth_tiles_reference(depth[None], cfg), *depth.shape,
+                                  x0, nx, one(gate), one(start), one(fits))[0]
+    return mask, K.bricks_holding(vol.weight > 0)
+
+
+@st.composite
+def _cull_cases(draw):
+    v = draw(st.sampled_from([40, 48, 96]))
+    cfg = P.TsdfConfig(**{**tests_torch_parity.DENSE_VOL, "resolution": v, "voxel_size": 2.4 / v})
+    lo, ext = np.array(cfg.origin), 2.4
+    unit = st.floats(-1.0, 1.0)
+    axis = draw(st.integers(0, 5))
+    forward = np.eye(3)[axis % 3] * (1 if axis < 3 else -1)
+    where = draw(st.sampled_from(["inside", "outside", "graze"]))
+    if where == "inside":
+        pos = lo + ext * (0.5 + 0.45 * np.array([draw(unit) for _ in range(3)]))
+    elif where == "outside":
+        d = np.array([draw(unit) for _ in range(3)]) + 1e-3
+        pos = lo + ext * 0.5 + ext * draw(st.floats(0.6, 2.0)) * d / np.linalg.norm(d)
+    else:  # on a face's plane (+- 2 voxels), looking along the face
+        face = draw(st.integers(0, 5))
+        pos = lo + ext * (0.5 + 0.6 * np.array([draw(unit) for _ in range(3)]))
+        pos[face % 3] = lo[face % 3] + ext * (face >= 3) + draw(st.floats(-2.0, 2.0)) * cfg.voxel_size
+        forward = np.eye(3)[(face + 1 + draw(st.integers(0, 1))) % 3] * (1 if draw(st.booleans()) else -1)
+    if draw(st.booleans()):  # tilted off the axis
+        forward = forward + draw(st.floats(0.0, 0.8)) * np.array([draw(unit) for _ in range(3)])
+    h, w = draw(st.sampled_from([(48, 64), (29, 37)]))
+    fx = draw(st.floats(30.0, 90.0))
+    intr = P.camera.Intrinsics(fx=fx, fy=fx * draw(st.floats(0.8, 1.25)), cx=(w - 1) / 2 + draw(st.floats(-6, 6)),
+                               cy=(h - 1) / 2 + draw(st.floats(-6, 6)), width=w, height=h)
+    pose_wc = look_at(forward, pos)
+    rng = np.random.RandomState(draw(st.integers(0, 2**31 - 1)))
+    if draw(st.booleans()):
+        depth = render(intr, pose_wc[None], seed=int(rng.randint(100)))[0]
+    else:
+        depth = rng.uniform(0.01, 1.3 * cfg.max_depth, (h, w)).astype(np.float32)
+    for bad in (0.0, np.nan, np.inf, 2.0 * cfg.max_depth):  # holes, NaN, inf, beyond max_depth
+        depth[rng.rand(h, w) < draw(st.sampled_from([0.0, 0.1, 0.5]))] = bad
+    x0, nx = 0, v
+    if draw(st.booleans()):  # an x-slab off the brick boundaries
+        x0 = draw(st.integers(0, v - 1))
+        nx = draw(st.integers(1, v - x0))
+    start = fits = None
+    if draw(st.booleans()):
+        size = draw(st.integers(1, v - 1))
+        cfg = cfg._replace(integrate_slab=size)
+        start = torch.tensor([draw(st.integers(0, v - size)) for _ in range(3)], dtype=torch.int32)
+        fits = torch.tensor(draw(st.booleans()))
+    color = torch.from_numpy(rng.rand(h, w, 3).astype(np.float32)) if draw(st.booleans()) else None
+    gate = torch.tensor(draw(st.sampled_from([True, True, True, False])))
+    return depth, color, pose_wc, intr, cfg, x0, nx, gate, start, fits
+
+
+@settings(max_examples=60, deadline=None, derandomize=True, suppress_health_check=[HealthCheck.too_slow])
+@given(_cull_cases())
+def test_brick_cull_is_sound(case):
+    """No voxel that _fuse_block's predicate updates (behind the gate and
+    the slab window) lies in a brick the cull's plain twin drops: poses
+    inside, outside and on the faces of the volume, along the axes and
+    tilted, frames rendered or random with holes, NaN, inf and depth past
+    max_depth, V = 40, 48, 96, x-slabs, windows and colored volumes."""
+    depth, color, pose_wc, intr, cfg, x0, nx, gate, start, fits = case
+    mask, updated = _cull_and_update(depth, color, pose_wc, intr, cfg, x0, nx, gate, start, fits)
+    assert not bool((updated & ~mask).any()), f"{int((updated & ~mask).sum())} updated bricks culled"
+    if not bool(gate):
+        assert not bool(mask.any())
+
+
+@pytest.mark.parametrize("bad", [0.0, float("nan"), 20.0, "pose"])
+def test_brick_cull_of_a_frame_without_valid_depth(bad):
+    """A frame with no valid depth (0, NaN, beyond max_depth) or a
+    non-finite pose updates nothing and the cull drops every brick."""
+    from realsensetracker_tpu_torch.kernels import tsdf as K
+
+    depth = np.full((60, 80), 2.0 if bad == "pose" else bad, np.float32)
+    pose_wc = POSES[0].copy()
+    if bad == "pose":
+        pose_wc[0, 1] = np.nan
+    else:
+        assert not bool(K.depth_tiles_reference(torch.from_numpy(depth)[None], CFG).isfinite().any())
+    mask, updated = _cull_and_update(depth, None, pose_wc, INTR, CFG)
+    assert not bool(mask.any()) and not bool(updated.any())
+
+
+def test_depth_tiles_reference():
+    from realsensetracker_tpu_torch.kernels import tsdf as K
+
+    rng = np.random.RandomState(5)
+    d = rng.uniform(0.0, 6.0, (2, 37, 50)).astype(np.float32)
+    d[0, :16, :16] = np.nan
+    d[1, 20:, 48:] = 0.0
+    got = K.depth_tiles_reference(torch.from_numpy(d), CFG).numpy()
+    assert got.shape == (2, 3, 4)
+    for s in range(2):
+        for ty in range(3):
+            for tx in range(4):
+                blk = d[s, 16 * ty : 16 * ty + 16, 16 * tx : 16 * tx + 16]
+                ok = blk[np.isfinite(blk) & (blk > CFG.min_depth) & (blk < CFG.max_depth)]
+                assert got[s, ty, tx] == (ok.max() if ok.size else -np.inf)
+
+
+def test_brick_cull_removes_half_the_bricks():
+    """On synthetic.render_trajectory's 640x480 frames into the default
+    128^3 volume the cull drops more than half of the bricks, and stays
+    sound there."""
+    from realsensetracker_tpu_torch.data import synthetic
+
+    cfg = P.TsdfConfig()
+    depths, poses = synthetic.render_trajectory(P.camera.TUM_FR1, 3, seed=0)
+    for d, T in zip(depths, poses):
+        mask, updated = _cull_and_update(d, None, T, P.camera.TUM_FR1, cfg)
+        assert not bool((updated & ~mask).any())
+        assert mask.float().mean().item() < 0.5 and bool(updated.any())
+
+
+@pytest.mark.parametrize("v", [40, 48, 96])
+def test_brick_cull_is_sound_on_adversarial_poses(v):
+    """torch_parity.adversarial_poses (brick corners and faces along the axes,
+    grazing, outside looking in, tilted) with the scene rendered and 5% of
+    the pixels holes or NaN: no updated voxel in a culled brick."""
+    cfg = P.TsdfConfig(**{**tests_torch_parity.DENSE_VOL, "resolution": v, "voxel_size": 2.4 / v})
+    _, intr = intrinsics(48, 64, 48.0)
+    rng = np.random.RandomState(v)
+    poses = adversarial_poses(cfg, 16, seed=v)
+    depths = render(intr, poses, seed=3)
+    for d, T in zip(depths, poses):
+        d[rng.rand(*d.shape) < 0.05] = rng.choice([0.0, np.nan])
+        mask, updated = _cull_and_update(d, None, T, intr, cfg)
+        assert not bool((updated & ~mask).any())

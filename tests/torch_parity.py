@@ -101,6 +101,52 @@ def render_rgbd(intr, poses, seed=0):
     return np.stack([d.numpy() for d, _ in frames]), np.stack([c.numpy() for _, c in frames])
 
 
+def look_at(forward, pos) -> np.ndarray:
+    """world_from_cam (4, 4) f32 at ``pos`` with the camera's +z along
+    ``forward`` (an exact axis gives a rotation of 0s and 1s)."""
+    f = np.asarray(forward, np.float64)
+    f = f / np.linalg.norm(f)
+    helper = np.array([0.0, 1.0, 0.0]) if abs(f[1]) < 0.9 else np.array([1.0, 0.0, 0.0])
+    x = np.cross(helper, f)
+    x = x / np.linalg.norm(x)
+    T = np.eye(4)
+    T[:3, :3] = np.stack([x, np.cross(f, x), f], 1)
+    T[:3, 3] = pos
+    return T.astype(np.float32)
+
+
+def adversarial_poses(cfg, n: int, seed: int = 0) -> np.ndarray:
+    """(n, 4, 4) f32 world_from_cam poses that stress the integrate's brick
+    cull in the volume of ``cfg``, in turn: on a brick corner inside the
+    volume looking exactly along an axis (frustum planes on voxel planes),
+    on a face of the volume looking along it (grazing), outside looking in,
+    and anywhere in or around it at a random tilt (chip_smoke.py draws the
+    same poses for the card)."""
+    rng = np.random.RandomState(seed)
+    v, vs = cfg.resolution, cfg.voxel_size
+    lo, ext = np.array(cfg.origin, np.float64), cfg.resolution * cfg.voxel_size
+    axes = np.concatenate([np.eye(3), -np.eye(3)])
+    poses = []
+    for k in range(n):
+        if k % 4 == 0:
+            corner = np.array([8 * rng.randint(-(-v // 8) + 1), 8 * rng.randint(-(-v // 8) + 1),
+                               32 * rng.randint(-(-v // 32) + 1)])
+            pos, fwd = lo + np.minimum(corner, v) * vs, axes[rng.randint(6)]
+        elif k % 4 == 1:
+            a = rng.randint(3)
+            pos = lo + ext * rng.rand(3)
+            pos[a] = lo[a] + ext * rng.randint(2)
+            fwd = axes[(a + 1 + rng.randint(2)) % 3] * rng.choice([-1.0, 1.0])
+        elif k % 4 == 2:
+            d = rng.randn(3)
+            pos = lo + ext / 2 + d / np.linalg.norm(d) * ext * rng.uniform(0.6, 1.5)
+            fwd = lo + ext / 2 - pos + 0.1 * ext * rng.randn(3)
+        else:
+            pos, fwd = lo + ext * rng.uniform(-0.2, 1.2, 3), rng.randn(3)
+        poses.append(look_at(fwd, pos))
+    return np.stack(poses)
+
+
 def volumes_close(jvol, pvol, atol=1e-6):
     """Assert a JAX and a port TsdfVolume agree: the observed masks equal,
     weights equal, tsdf (and color planes) within atol."""
