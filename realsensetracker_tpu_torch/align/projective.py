@@ -23,6 +23,7 @@ import torch
 from realsensetracker_tpu_torch.geometry import camera, se3
 from realsensetracker_tpu_torch.kernels import downsample, gn_step
 from realsensetracker_tpu_torch.ops.pyramid import PyramidLevel, build_pyramid
+from realsensetracker_tpu_torch.utils.tracing import span
 
 
 class ProjectiveIcpConfig(NamedTuple):
@@ -345,23 +346,24 @@ def register_depth_pair(
     src-to-dst SE(3) transforms out. The destination builds plane-table
     pyramids; the source is sampled straight from its depth levels, or,
     for sample_mode="normal_space", from a full pyramid with normals."""
-    if src_depth.dim() != 3 or src_depth.shape != dst_depth.shape:
-        raise ValueError(
-            f"need two (B, H, W) batches of one shape, got {tuple(src_depth.shape)} "
-            f"and {tuple(dst_depth.shape)}"
-        )
-    cfg = fit_levels(cfg, *src_depth.shape[-2:])
-    num_levels = len(cfg.iters)
-    dst_levels, intrs = build_pyramid(dst_depth, intr, num_levels, cfg.min_depth, cfg.max_depth)
-    if cfg.sample_mode == "normal_space":
-        src_levels, _ = build_pyramid(src_depth, intr, num_levels, cfg.min_depth, cfg.max_depth)
-        return projective_icp(src_levels, dst_levels, tuple(intrs), init_transform, cfg)
-    src_depth = src_depth.to(torch.float32)
-    valid = camera.valid_mask(src_depth, cfg.min_depth, cfg.max_depth)
-    d = torch.where(valid, src_depth, 0.0)
-    depths = [d] + [dl for dl, _ in downsample.downsample_levels(d, num_levels, cfg.min_depth)]
-    samples = [
-        sample_depth_points(dl, intrs[li], _level_samples(cfg, li), cfg.min_depth, cfg.max_depth)
-        for li, dl in enumerate(depths)
-    ]
-    return projective_icp_sampled(samples, dst_levels, tuple(intrs), init_transform, cfg)
+    with span("rst.projective.register"):
+        if src_depth.dim() != 3 or src_depth.shape != dst_depth.shape:
+            raise ValueError(
+                f"need two (B, H, W) batches of one shape, got {tuple(src_depth.shape)} "
+                f"and {tuple(dst_depth.shape)}"
+            )
+        cfg = fit_levels(cfg, *src_depth.shape[-2:])
+        num_levels = len(cfg.iters)
+        dst_levels, intrs = build_pyramid(dst_depth, intr, num_levels, cfg.min_depth, cfg.max_depth)
+        if cfg.sample_mode == "normal_space":
+            src_levels, _ = build_pyramid(src_depth, intr, num_levels, cfg.min_depth, cfg.max_depth)
+            return projective_icp(src_levels, dst_levels, tuple(intrs), init_transform, cfg)
+        src_depth = src_depth.to(torch.float32)
+        valid = camera.valid_mask(src_depth, cfg.min_depth, cfg.max_depth)
+        d = torch.where(valid, src_depth, 0.0)
+        depths = [d] + [dl for dl, _ in downsample.downsample_levels(d, num_levels, cfg.min_depth)]
+        samples = [
+            sample_depth_points(dl, intrs[li], _level_samples(cfg, li), cfg.min_depth, cfg.max_depth)
+            for li, dl in enumerate(depths)
+        ]
+        return projective_icp_sampled(samples, dst_levels, tuple(intrs), init_transform, cfg)

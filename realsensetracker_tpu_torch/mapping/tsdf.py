@@ -48,6 +48,7 @@ import torch.nn.functional as F
 from realsensetracker_tpu_torch import device as device_mod
 from realsensetracker_tpu_torch.geometry import camera, se3
 from realsensetracker_tpu_torch.ops import cloud as cloud_mod
+from realsensetracker_tpu_torch.utils.tracing import span
 
 
 class TsdfConfig(NamedTuple):
@@ -296,12 +297,14 @@ def integrate_slots(volume: TsdfVolume, depths: torch.Tensor, poses_world_from_c
     the slab window, which the slots force off as JAX does under vmap."""
     from realsensetracker_tpu_torch.kernels import tsdf as tsdf_kernels
 
-    if 0 < int(cfg.integrate_slab) < cfg.resolution:
-        raise ValueError("integrate_slots has no slab window: set integrate_slab=0 (parallel/streams.py does)")
-    poses_world_from_cam = poses_world_from_cam.to(torch.float32)
-    pose_cfw = torch.stack([se3.inverse(P) for P in poses_world_from_cam]).contiguous()
-    tsdf_kernels.fuse_blocks(volume, depths.to(torch.float32).contiguous(), None, pose_cfw, intr, cfg, gates=gates)
-    return volume
+    with span("rst.tsdf.integrate"):
+        if 0 < int(cfg.integrate_slab) < cfg.resolution:
+            raise ValueError("integrate_slots has no slab window: set integrate_slab=0 (parallel/streams.py does)")
+        poses_world_from_cam = poses_world_from_cam.to(torch.float32)
+        pose_cfw = torch.stack([se3.inverse(P) for P in poses_world_from_cam]).contiguous()
+        tsdf_kernels.fuse_blocks(volume, depths.to(torch.float32).contiguous(), None, pose_cfw, intr, cfg,
+                                 gates=gates)
+        return volume
 
 
 def _integrate_planes(vol, depth, pose_world_from_cam, intr, cfg, color, gate, x0: int) -> None:
@@ -515,10 +518,11 @@ def render_model_depth(vol: TsdfVolume, pose_world_from_cam: torch.Tensor, intr:
                        cfg: TsdfConfig = TsdfConfig()) -> torch.Tensor:
     """The config's model render: the full march, or coarse-to-fine when
     cfg.raycast_coarse > 1 (the tracker's hot path)."""
-    if cfg.raycast_coarse > 1:
-        return raycast_coarse_to_fine(vol, pose_world_from_cam, intr, cfg, coarse=cfg.raycast_coarse,
-                                      refine_steps=cfg.refine_steps)
-    return raycast(vol, pose_world_from_cam, intr, cfg)
+    with span("rst.tsdf.render"):
+        if cfg.raycast_coarse > 1:
+            return raycast_coarse_to_fine(vol, pose_world_from_cam, intr, cfg, coarse=cfg.raycast_coarse,
+                                          refine_steps=cfg.refine_steps)
+        return raycast(vol, pose_world_from_cam, intr, cfg)
 
 
 LUMA = (0.299, 0.587, 0.114)  # BT.601

@@ -15,6 +15,7 @@ import torch
 
 from realsensetracker_tpu_torch.geometry import camera
 from realsensetracker_tpu_torch.kernels import downsample, level_kernel
+from realsensetracker_tpu_torch.utils.tracing import span
 
 
 class PyramidLevel(NamedTuple):
@@ -90,42 +91,43 @@ def build_pyramid(
     kernels (a CPU tensor raises), False the plain versions. min_depth must
     be >= 0 (the downsample reads validity as depth > 0).
     """
-    if depth.dim() != 3:
-        raise ValueError(f"depth must be (B, H, W), got shape {tuple(depth.shape)}")
-    kernel = _use_kernel(use_kernel, depth)
-    build_level = (
-        level_kernel.build_level_packed if kernel else level_kernel.build_level_packed_reference
-    )
-    if min_depth < 0:
-        raise ValueError(f"min_depth {min_depth} < 0: the pyramid reads validity as depth > 0")
-    depth = depth.to(torch.float32)
-    valid = camera.valid_mask(depth, min_depth, max_depth)
-    d = torch.where(valid, depth, 0.0)  # the kernels take MASKED depth
-    if kernel:
-        coarse = downsample.downsample_levels(d, num_levels, min_depth)
-    else:
-        coarse = downsample.downsample_levels_reference(d, num_levels)
-    levels: list[PyramidLevel] = []
-    intrs = list(level_intrinsics(intr, num_levels))
-    for li, cur_intr in enumerate(intrs):
-        if li:
-            d, valid = coarse[li - 1]
-        vmap = camera.unproject_depth(d, cur_intr)
-        if with_normals:
-            packed = build_level(d, cur_intr)
-            nmap = packed[:, 0:3].permute(0, 2, 3, 1)
-            lvl_valid = (packed[:, 0:3] ** 2).sum(1) > 0.5
-        else:
-            nmap = torch.zeros_like(vmap)
-            lvl_valid = valid
-            packed = torch.zeros((d.shape[0], 4) + d.shape[1:], dtype=d.dtype, device=d.device)
-        levels.append(
-            PyramidLevel(
-                vertex_map=vmap,
-                normal_map=nmap,
-                valid=lvl_valid,
-                vertex_valid=valid,
-                packed=packed,
-            )
+    with span("rst.pyramid.build"):
+        if depth.dim() != 3:
+            raise ValueError(f"depth must be (B, H, W), got shape {tuple(depth.shape)}")
+        kernel = _use_kernel(use_kernel, depth)
+        build_level = (
+            level_kernel.build_level_packed if kernel else level_kernel.build_level_packed_reference
         )
-    return levels, intrs
+        if min_depth < 0:
+            raise ValueError(f"min_depth {min_depth} < 0: the pyramid reads validity as depth > 0")
+        depth = depth.to(torch.float32)
+        valid = camera.valid_mask(depth, min_depth, max_depth)
+        d = torch.where(valid, depth, 0.0)  # the kernels take MASKED depth
+        if kernel:
+            coarse = downsample.downsample_levels(d, num_levels, min_depth)
+        else:
+            coarse = downsample.downsample_levels_reference(d, num_levels)
+        levels: list[PyramidLevel] = []
+        intrs = list(level_intrinsics(intr, num_levels))
+        for li, cur_intr in enumerate(intrs):
+            if li:
+                d, valid = coarse[li - 1]
+            vmap = camera.unproject_depth(d, cur_intr)
+            if with_normals:
+                packed = build_level(d, cur_intr)
+                nmap = packed[:, 0:3].permute(0, 2, 3, 1)
+                lvl_valid = (packed[:, 0:3] ** 2).sum(1) > 0.5
+            else:
+                nmap = torch.zeros_like(vmap)
+                lvl_valid = valid
+                packed = torch.zeros((d.shape[0], 4) + d.shape[1:], dtype=d.dtype, device=d.device)
+            levels.append(
+                PyramidLevel(
+                    vertex_map=vmap,
+                    normal_map=nmap,
+                    valid=lvl_valid,
+                    vertex_valid=valid,
+                    packed=packed,
+                )
+            )
+        return levels, intrs

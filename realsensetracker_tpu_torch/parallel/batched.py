@@ -15,6 +15,7 @@ import torch
 from realsensetracker_tpu_torch.align import projective
 from realsensetracker_tpu_torch.geometry import camera
 from realsensetracker_tpu_torch.parallel import mesh as mesh_mod
+from realsensetracker_tpu_torch.utils.tracing import span
 
 
 def register_batch(
@@ -24,7 +25,8 @@ def register_batch(
     cfg: projective.ProjectiveIcpConfig = projective.ProjectiveIcpConfig(),
 ) -> projective.ProjectiveIcpResult:
     """Register B independent frame pairs in one batched pass."""
-    return projective.register_depth_pair(src_depths, dst_depths, intr, cfg)
+    with span("rst.batched.register"):
+        return projective.register_depth_pair(src_depths, dst_depths, intr, cfg)
 
 
 def register_batch_chunked(
@@ -37,15 +39,16 @@ def register_batch_chunked(
     """Register B pairs as a loop of `chunk`-sized register_batch calls;
     device memory holds one chunk's working set at a time."""
     b = src_depths.shape[0]
-    if b <= chunk:
-        return register_batch(src_depths, dst_depths, intr, cfg)
-    if b % chunk:
-        raise ValueError(f"batch {b} not a multiple of chunk {chunk}")
-    parts = [
-        register_batch(src_depths[i : i + chunk], dst_depths[i : i + chunk], intr, cfg)
-        for i in range(0, b, chunk)
-    ]
-    return projective.ProjectiveIcpResult(*(torch.cat(field) for field in zip(*parts)))
+    with span("rst.batched.register"):
+        if b <= chunk:
+            return register_batch(src_depths, dst_depths, intr, cfg)
+        if b % chunk:
+            raise ValueError(f"batch {b} not a multiple of chunk {chunk}")
+        parts = [
+            register_batch(src_depths[i : i + chunk], dst_depths[i : i + chunk], intr, cfg)
+            for i in range(0, b, chunk)
+        ]
+        return projective.ProjectiveIcpResult(*(torch.cat(field) for field in zip(*parts)))
 
 
 def register_batch_sharded(

@@ -41,6 +41,7 @@ from realsensetracker_tpu_torch.geometry import camera, se3
 from realsensetracker_tpu_torch.mapping import tsdf as tsdf_mod
 from realsensetracker_tpu_torch.ops.pyramid import PyramidLevel, build_pyramid, depth_to_meters
 from realsensetracker_tpu_torch.tracking.tsdf_tracker import _track_views
+from realsensetracker_tpu_torch.utils.tracing import span
 
 
 class StreamState(NamedTuple):
@@ -508,9 +509,10 @@ def step_tsdf_streams(
     batched registration, one integrate of all S gated on the device
     (failure hold, integrate_every cadence) -- the same results as
     per-slot tracking."""
-    vol_cfg = _stream_vol_cfg(vol_cfg)
-    return _tsdf_streams_impl(state, depth_to_meters(depths, depth_scale), intr, vol_cfg, icp_cfg,
-                              min_inlier_fraction)
+    with span("rst.streams.step"):
+        vol_cfg = _stream_vol_cfg(vol_cfg)
+        return _tsdf_streams_impl(state, depth_to_meters(depths, depth_scale), intr, vol_cfg, icp_cfg,
+                                  min_inlier_fraction)
 
 
 def step_tsdf_streams_window(
@@ -523,13 +525,14 @@ def step_tsdf_streams_window(
     depth_scale: float = 1.0,
 ) -> tuple[TsdfStreamState, StreamStepResult]:
     """Advance S dense streams by W frames (a loop of step_tsdf_streams)."""
-    vol_cfg = _stream_vol_cfg(vol_cfg)
-    seq = []
-    for j in range(depths.shape[1]):
-        state, res = _tsdf_streams_impl(state, depth_to_meters(depths[:, j], depth_scale), intr, vol_cfg, icp_cfg,
-                                        min_inlier_fraction)
-        seq.append(res)
-    return state, _stack_results(seq)
+    with span("rst.streams.step"):
+        vol_cfg = _stream_vol_cfg(vol_cfg)
+        seq = []
+        for j in range(depths.shape[1]):
+            state, res = _tsdf_streams_impl(state, depth_to_meters(depths[:, j], depth_scale), intr, vol_cfg,
+                                            icp_cfg, min_inlier_fraction)
+            seq.append(res)
+        return state, _stack_results(seq)
 
 
 def blank_tsdf_streams(
