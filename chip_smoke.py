@@ -1251,13 +1251,17 @@ def dense_phases(ctx) -> dict:
                 "bound_by": "bytes" if t_b >= t_o else "operations"}
     tiles_row = {"max_abs_err": 0.0, "ms": None, "plain_ms": tp, "bound_ms": tiles_bound[0],
                  "bound_by": tiles_bound[1]}
+    # The raycast's row: the march of the volume's planes (the renders'
+    # source), the march of the built field beside it.
     rk, rp = ctx.turns(
         lambda: tsdf_kernels.march_reference(field, T, intr, cfg, cfg.num_steps, subvoxel_iters=cfg.subvoxel_iters),
-        lambda: tsdf_kernels.march(field, T, intr, cfg, cfg.num_steps, subvoxel_iters=cfg.subvoxel_iters), 2, 20)
+        lambda: tsdf_kernels.march(vol, T, intr, cfg, cfg.num_steps, subvoxel_iters=cfg.subvoxel_iters), 2, 20)
+    rk_field = ctx.time_ms(lambda: tsdf_kernels.march(field, T, intr, cfg, cfg.num_steps,
+                                                      subvoxel_iters=cfg.subvoxel_iters), 20)
     (rb, rb_by), gathers = raycast_bound(cfg, tsdf_mod.raycast(vol, T, intr, cfg))
     timing[128] = {"integrate_ms": ik, "integrate_plain_ms": ip, "integrate_bound_ms": ib,
                    "integrate_bound_by": ib_by, **istats,
-                   "raycast_ms": rk, "raycast_plain_ms": rp,
+                   "raycast_ms": rk, "raycast_field_ms": rk_field, "raycast_plain_ms": rp,
                    "raycast_bound_ms": rb, "raycast_bound_by": rb_by, "raycast_gathers": gathers,
                    **march_cases(cfg, vol)}
 
@@ -1272,11 +1276,13 @@ def dense_phases(ctx) -> dict:
     (ib5, ib5_by), istats5 = integrate_stats(cfg512, vol512, depths[-1], T)
     rk5, rp5 = ctx.turns(
         lambda: tsdf_kernels.march_reference(field512, T, intr, cfg512, cfg512.num_steps, subvoxel_iters=1),
-        lambda: tsdf_kernels.march(field512, T, intr, cfg512, cfg512.num_steps, subvoxel_iters=1), 1, 10)
+        lambda: tsdf_kernels.march(vol512, T, intr, cfg512, cfg512.num_steps, subvoxel_iters=1), 1, 10)
+    rk5_field = ctx.time_ms(lambda: tsdf_kernels.march(field512, T, intr, cfg512, cfg512.num_steps,
+                                                       subvoxel_iters=1), 10)
     out512 = tsdf_mod.raycast(vol512, T, intr, cfg512)
     (rb5, rb5_by), gathers5 = raycast_bound(cfg512, out512)
     timing[512] = {"integrate_ms": ik5, "integrate_plain_ms": ip5, "integrate_bound_ms": ib5,
-                   "integrate_bound_by": ib5_by, **istats5, "raycast_ms": rk5,
+                   "integrate_bound_by": ib5_by, **istats5, "raycast_ms": rk5, "raycast_field_ms": rk5_field,
                    "raycast_plain_ms": rp5, "raycast_bound_ms": rb5, "raycast_bound_by": rb5_by,
                    "raycast_gathers": gathers5, "hits": int((out512 > 0).sum()),
                    **march_cases(cfg512, vol512)}
@@ -2509,7 +2515,7 @@ def multidevice_phase(ctx) -> None:
                   f"multidevice: sharded integrate at {v}^3 differs from the unsharded volume")
             ctx.reset_counts()
             r_sh = tsdf_sharded.raycast(vol, eye, intr, vcfg)
-            ctx.check_counts(ctx.read_counts(), f"multidevice raycast {v}^3", 0, 0, 0, raycasts=1)
+            ctx.check_counts(ctx.read_counts(), f"multidevice raycast {v}^3", 0, 0, 0, raycasts=1, planes=0)
             r_ref = tsdf_mod.raycast(whole, eye, intr, vcfg)
             torch.cuda.synchronize()
             hit = r_ref > 0
@@ -2605,8 +2611,10 @@ def kernel_alone_phase(ctx) -> None:
     between two events (a small kernel's events otherwise time its
     launches): factor and apply at n = 64 and 1000 in turns with the
     previous chain, the full march and the coarse-to-fine refine march at
-    640x480 into 128^3, and the integrate at 128^3 and 512^3 in turns with
-    its previous design, its tile map alone and with the cull. Last of the
+    640x480 into 128^3 (of the planes, in turns with the march of the
+    field), a 512^3 coarse-to-fine render by its planes in turns with the
+    field built and marched, and the integrate at 128^3 and 512^3 in turns
+    with its previous design, its tile map alone and with the cull. Last of the
     phases, so that no graph runs before a profiler window. ctx: dev, card,
     graph_ms, intr."""
     import torch
@@ -2649,10 +2657,41 @@ def kernel_alone_phase(ctx) -> None:
     field, T, it = tsdf_mod.march_field(vol), poses[-1], cfg.subvoxel_iters
     dc = tsdf_kernels.march(field, T, tsdf_mod.coarse_intrinsics(intr, 4), cfg, cfg.num_steps)
     z0, seeded = tsdf_mod.coarse_seeds(dc, 4, cfg)
-    cases = {"full": ((field, T, intr, cfg, cfg.num_steps), dict(subvoxel_iters=it)),
-             "fine": ((field, T, intr, cfg, cfg.refine_steps), dict(z_start=z0, gate=seeded, subvoxel_iters=it))}
-    for case, (a, kw) in cases.items():
-        rows[f"raycast_{case}_128"] = {"kernel": ctx.graph_ms(lambda: tsdf_kernels.march(*a, **kw), 20)}
+    cases = {"full": ((T, intr, cfg, cfg.num_steps), dict(subvoxel_iters=it)),
+             "fine": ((T, intr, cfg, cfg.refine_steps), dict(z_start=z0, gate=seeded, subvoxel_iters=it))}
+    for case, (a, kw) in cases.items():  # the march of the planes (the renders'), of the field in turns
+        ms = {}
+        for name in ("field", "kernel", "kernel", "field"):
+            source = vol if name == "kernel" else field
+            ms.setdefault(name, []).append(ctx.graph_ms(lambda: tsdf_kernels.march(source, *a, **kw), 20))
+        rows[f"raycast_{case}_128"] = {k: sum(v) / len(v) for k, v in ms.items()}
+
+    # A whole 512^3 render of the benchmark's KinectFusion configuration
+    # (trunc 0.1 m, coarse-to-fine x4), the last frame's pose, both ways in
+    # turns: the march field built and marched twice (the route a sharded
+    # volume keeps), and the two marches of the planes (render_model_depth).
+    cfg512 = tsdf_mod.sized_config(resolution=512, voxel_size=0.01)._replace(trunc=0.1, raycast_coarse=4)
+    vol512 = tsdf_mod.init_volume(cfg512, device=dev)
+    for i in range(depths.shape[0]):
+        tsdf_mod.integrate(vol512, depths[i], poses[i], intr, cfg512)
+
+    def render_by_field():
+        f = tsdf_mod.march_field(vol512)
+        dc_ = tsdf_kernels.march(f, T, tsdf_mod.coarse_intrinsics(intr, 4), cfg512, cfg512.num_steps)
+        z_c, gate_c = tsdf_mod.coarse_seeds(dc_, 4, cfg512)
+        return tsdf_kernels.march(f, T, intr, cfg512, cfg512.refine_steps, z_start=z_c, gate=gate_c,
+                                  subvoxel_iters=cfg512.subvoxel_iters)
+
+    def render_by_planes():
+        return tsdf_mod.render_model_depth(vol512, T, intr, cfg512)
+
+    check(torch.equal(render_by_field(), render_by_planes()), "kernel_alone: the 512^3 render differs by its source")
+    ms = {}
+    for name in ("field", "planes", "planes", "field"):
+        ms.setdefault(name, []).append(ctx.graph_ms(render_by_field if name == "field" else render_by_planes, 10))
+    rows["render_512"] = {**{k: sum(v) / len(v) for k, v in ms.items()}, "runs": ms,
+                          "field_build": ctx.graph_ms(lambda: tsdf_mod.march_field(vol512), 10)}
+    del vol512
 
     # The integrate (tile map, cull, update) in turns with its previous
     # design (one thread per voxel of the grid), the last frame into the
@@ -2762,19 +2801,24 @@ def main() -> None:
         got = {"downsample_levels": downsample.LAUNCHES, "build_level_packed": level_kernel.LAUNCHES,
                **gn_step.LAUNCHES, "backbone": sum(backbone.LAUNCHES.values()), **tsdf_kernels.LAUNCHES}
         for k, v in got.items():
-            main_launches[k] += v
+            if k in main_launches:  # tsdf_raycast_planes: a part of tsdf_raycast
+                main_launches[k] += v
         return got
 
-    def check_counts(got, what, levels, gn_rounds, pyramids, systems=0, backbones=0, integrates=0, raycasts=0):
+    def check_counts(got, what, levels, gn_rounds, pyramids, systems=0, backbones=0, integrates=0, raycasts=0,
+                     planes=None):
         """levels: level-kernel launches; gn_rounds: association rounds;
         pyramids: downsample launches (one per pyramid or source-level set);
         systems: gn_system launches (joint RGB-D steps); backbones: backbone
         factor + apply launches; integrates: TSDF integrates (each one
         tile-map, one cull and one brick launch, whatever its slots);
-        raycasts: raycast-march launches."""
+        raycasts: raycast-march launches; planes: those of them that read a
+        volume's planes (None: all, as every render of a whole volume on
+        the card does)."""
         want = {"downsample_levels": pyramids, "build_level_packed": levels, "gn_round": gn_rounds,
                 "gn_system": systems, "backbone": backbones, "tsdf_depth_tiles": integrates, "tsdf_cull": integrates,
-                "tsdf_integrate": integrates, "tsdf_raycast": raycasts}
+                "tsdf_integrate": integrates, "tsdf_raycast": raycasts,
+                "tsdf_raycast_planes": raycasts if planes is None else planes}
         check(got == want, f"{what}: launches {got}, expected {want}")
 
     def bound(nbytes, flops):
@@ -3086,7 +3130,7 @@ def main() -> None:
             results_ += run(chunk_frames, stamps)  # ends in a host transfer
             ms.append((time.perf_counter() - t0) * 1e3 / len(chunk_frames))
             for k, v in read_counts().items():
-                launches[k] += v
+                launches[k] = launches.get(k, 0) + v
     check_counts(pf_launches, "keyframe per frame", num_levels * total, rounds * (total - 1), total)
     # The first window call seeds the keyframe with frame 0 and pads frames
     # 1-7 to 8 rows: one batched pyramid per window, one GN round per row.

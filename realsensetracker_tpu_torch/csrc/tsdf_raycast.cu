@@ -8,8 +8,12 @@
 //
 // rst_tsdf_raycast renders one (H, W) depth map from a flat (V^3,) march
 // field (clip(tsdf, -1, 1) where observed, 2.0 elsewhere) seen from
-// pose_world_from_cam. Ray (u, v) has direction R [(u - cx)/fx, (v - cy)/fy,
-// 1] per unit depth and starts at z_start[ray] (or z0 when z_start is null):
+// pose_world_from_cam; rst_tsdf_raycast_planes renders it from the volume's
+// (V, V, V) tsdf and weight planes, computing each sample's field value from
+// them where it reads it, so that no V^3 field is built. Both run one body,
+// raycast_kernel, templated on where a sample's value comes from. Ray (u, v)
+// has direction R [(u - cx)/fx, (v - cy)/fy, 1] per unit depth and starts at
+// z_start[ray] (or z0 when z_start is null):
 //   march: z_k = z_start + k * step for k = 1..n_steps, the field sampled
 //     nearest-neighbour at t + z_k dir (outside the grid: +1, unobserved);
 //     the first step from an observed positive value to an observed value
@@ -23,20 +27,31 @@
 // raycast_coarse_to_fine with z0 at 1/coarse resolution (no refinement),
 // then with per-ray z_start, the coarse seeds as gate and refine_steps.
 //
+// The planes source yields at index i exactly the value the field holds
+// there, torch.where(weight > 0, tsdf.clamp(-1, 1), 2.0): weight[i] > 0
+// (false for NaN) selects the clamped tsdf, and the clamp is written as
+// torch.clamp computes it, passing NaN and -0.0 through unchanged (fminf and
+// fmaxf would drop a NaN). So the two sources give the same bits.
+//
 // Design: one thread per ray. The march stops at the first crossing: JAX
 // runs the fixed trip count, but its `found` latches and its hit never
 // moves after it, so the result is the same. A ray the gate closes is 0
 // whatever its march finds, so it is not marched (its gate word is read
 // beside z_start, before the ray's setup). z_k is computed afresh at each
-// step (never accumulated), as JAX computes it. A 128^3 field is 8 MB and
-// stays in H100's 50 MB L2; each step is one 4-byte gather, each
-// refinement 16. A warp-cooperative march (a team of lanes per ray, one
-// step per lane, a ballot for the first crossing) gave the same bits and
-// took several times as long on the H100; it was not kept (PERF.md
-// section 6).
+// step (never accumulated), as JAX computes it. Each step is one gather
+// of the field, or one of each plane; each refinement 8 of each. The
+// planes source issues both loads together, reading the tsdf word whatever
+// the weight: skipping it where the weight is 0 made the second load wait
+// on the first and measured slower on every march (PERF.md section 6). A
+// warp-cooperative march (a team of lanes per ray, one step per lane, a
+// ballot for the first crossing) gave the same bits and took several times
+// as long on the H100; it was not kept (PERF.md section 6).
 //
-// Bound: at 640x480 into 128^3 the march's gathers are 20.7 M words of one
-// 8 MB field, so neither bytes nor f32 operations bound it (0.0093 ms).
+// Bound: at 640x480 into 128^3 the march's gathers are 20.7 M of one 8 MB
+// field (two 8 MB planes for the planes source), so neither bytes nor f32
+// operations bound it (0.0093 ms). Building the field instead takes three
+// elementwise passes over the volume, ~2.9 GB moved per render at 512^3,
+// where a coarse-to-fine render's ~10 M gathers touch a few percent of it.
 //
 // Rounding: the operations and their order are the plain torch version's
 // (mapping/tsdf.py _ray_dirs, _march, _trilinear_tsdf, _refine_subvoxel):
@@ -71,9 +86,30 @@ struct Ray {
   float t[3], dir[3], o[3];
 };
 
+constexpr float kUnobserved = 2.0f;  // the field's value where weight == 0 (mapping/tsdf.py UNOBSERVED)
+
+// A sample's field value, read from the flat march field.
+struct FieldSource {
+  const float* __restrict__ field;
+  __device__ __forceinline__ float operator()(int i) const { return __ldg(field + i); }
+};
+
+// A sample's field value, computed from the tsdf and weight planes: the
+// tsdf clamped to [-1, 1] (NaN and -0.0 pass, as in torch.clamp) where
+// weight > 0, kUnobserved elsewhere (a NaN weight included).
+struct PlanesSource {
+  const float* __restrict__ tsdf;
+  const float* __restrict__ weight;
+  __device__ __forceinline__ float operator()(int i) const {
+    const float w = __ldg(weight + i);
+    const float t = __ldg(tsdf + i);
+    return w > 0.0f ? (t < -1.0f ? -1.0f : (t > 1.0f ? 1.0f : t)) : kUnobserved;
+  }
+};
+
 // Nearest-neighbour march sample at depth z: (value, seen).
-__device__ __forceinline__ float sample(const float* __restrict__ field, const Ray& r, float z, const Params& p,
-                                        bool* seen) {
+template <class Source>
+__device__ __forceinline__ float sample(const Source& field, const Ray& r, float z, const Params& p, bool* seen) {
   float g[3];
   bool inside = true;
   const float hi = static_cast<float>(p.v) - 0.5f;
@@ -89,14 +125,14 @@ __device__ __forceinline__ float sample(const float* __restrict__ field, const R
   const int ix = static_cast<int>(rintf(g[0]));
   const int iy = static_cast<int>(rintf(g[1]));
   const int iz = static_cast<int>(rintf(g[2]));
-  const float raw = __ldg(field + (ix * p.v + iy) * p.v + iz);
+  const float raw = field((ix * p.v + iy) * p.v + iz);
   *seen = raw < 1.5f;
   return raw;
 }
 
 // Observation-gated trilinear sample at depth z: (value, valid).
-__device__ __forceinline__ float trilinear(const float* __restrict__ field, const Ray& r, float z, const Params& p,
-                                           bool* valid) {
+template <class Source>
+__device__ __forceinline__ float trilinear(const Source& field, const Ray& r, float z, const Params& p, bool* valid) {
   int i0[3];
   float fr[3];
 #pragma unroll
@@ -115,7 +151,7 @@ __device__ __forceinline__ float trilinear(const float* __restrict__ field, cons
 #pragma unroll
       for (int dz = 0; dz < 2; ++dz) {
         float w = ((dx ? fr[0] : 1.0f - fr[0]) * (dy ? fr[1] : 1.0f - fr[1])) * (dz ? fr[2] : 1.0f - fr[2]);
-        const float cval = __ldg(field + ((i0[0] + dx) * p.v + i0[1] + dy) * p.v + i0[2] + dz);
+        const float cval = field(((i0[0] + dx) * p.v + i0[1] + dy) * p.v + i0[2] + dz);
         w = w * (cval < 1.5f ? 1.0f : 0.0f);
         if (first) {
           acc = w * cval;
@@ -132,9 +168,10 @@ __device__ __forceinline__ float trilinear(const float* __restrict__ field, cons
   return acc / fmaxf(w_acc, 1e-12f);
 }
 
+template <class Source>
 __global__ void __launch_bounds__(kThreads)
-raycast_kernel(const float* __restrict__ field, const float* __restrict__ pose, const float* __restrict__ z_start,
-               float z0, const bool* __restrict__ gate, float* __restrict__ out, Params p) {
+raycast_kernel(const Source field, const float* __restrict__ pose, const float* __restrict__ z_start, float z0,
+               const bool* __restrict__ gate, float* __restrict__ out, Params p) {
   const int ray = blockIdx.x * blockDim.x + threadIdx.x;
   if (ray >= p.h * p.w) return;
   const bool open = gate == nullptr || gate[ray];  // loaded beside z_start, before the ray's setup
@@ -195,24 +232,43 @@ raycast_kernel(const float* __restrict__ field, const float* __restrict__ pose, 
   out[ray] = z;
 }
 
-}  // namespace
-
-// Launches one march on `stream` (a cudaStream_t) and returns
-// cudaGetLastError() as an int: 0 when the launch was accepted. z_start and
-// gate may be null. Returns cudaErrorInvalidValue, launching nothing, for V
-// outside 2..1290, an empty frame or negative step counts.
-extern "C" int rst_tsdf_raycast(const float* field, const float* pose_world_from_cam, const float* z_start, float z0,
-                                const bool* gate, float* out, int h, int w, float cx, float cy, float rfx, float rfy,
-                                int v, float ox, float oy, float oz, float inv_vs, float step, int n_steps,
-                                int subvoxel_iters, float delta, void* stream) {
+// Launches one march reading `field` on `stream` (a cudaStream_t) and
+// returns cudaGetLastError() as an int: 0 when the launch was accepted.
+// Returns cudaErrorInvalidValue, launching nothing, for V outside 2..1290, an
+// empty frame or negative step counts.
+template <class Source>
+int launch(const Source field, const float* pose_world_from_cam, const float* z_start, float z0, const bool* gate,
+           float* out, int h, int w, float cx, float cy, float rfx, float rfy, int v, float ox, float oy, float oz,
+           float inv_vs, float step, int n_steps, int subvoxel_iters, float delta, void* stream) {
   if (v < 2 || v > 1290 || h < 1 || w < 1 || n_steps < 0 || subvoxel_iters < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Params p{h, w, cx, cy, rfx, rfy, v, ox, oy, oz, inv_vs, step, n_steps, subvoxel_iters, delta};
   const int n = h * w;
-  raycast_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  raycast_kernel<Source><<<(n + kThreads - 1) / kThreads, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       field, pose_world_from_cam, z_start, z0, gate, out, p);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// One march of the flat (V^3,) march field; z_start and gate may be null.
+extern "C" int rst_tsdf_raycast(const float* field, const float* pose_world_from_cam, const float* z_start, float z0,
+                                const bool* gate, float* out, int h, int w, float cx, float cy, float rfx, float rfy,
+                                int v, float ox, float oy, float oz, float inv_vs, float step, int n_steps,
+                                int subvoxel_iters, float delta, void* stream) {
+  return launch(FieldSource{field}, pose_world_from_cam, z_start, z0, gate, out, h, w, cx, cy, rfx, rfy, v, ox, oy,
+                oz, inv_vs, step, n_steps, subvoxel_iters, delta, stream);
+}
+
+// The same march reading the volume's (V, V, V) tsdf and weight planes.
+extern "C" int rst_tsdf_raycast_planes(const float* tsdf, const float* weight, const float* pose_world_from_cam,
+                                       const float* z_start, float z0, const bool* gate, float* out, int h, int w,
+                                       float cx, float cy, float rfx, float rfy, int v, float ox, float oy, float oz,
+                                       float inv_vs, float step, int n_steps, int subvoxel_iters, float delta,
+                                       void* stream) {
+  return launch(PlanesSource{tsdf, weight}, pose_world_from_cam, z_start, z0, gate, out, h, w, cx, cy, rfx, rfy, v,
+                ox, oy, oz, inv_vs, step, n_steps, subvoxel_iters, delta, stream);
 }
 
 extern "C" const char* rst_tsdf_raycast_error_string(int code) {

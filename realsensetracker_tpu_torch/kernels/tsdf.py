@@ -27,8 +27,11 @@ dozen V^3 temporaries per integrate.
   field from its z_start for n_steps, stops at the first crossing (JAX's
   fixed trip count latches ``found`` and never moves the hit after it),
   then runs ``subvoxel_iters`` trilinear refinements; a ray the gate
-  closes is not marched. ``raycast`` and both phases of
-  ``raycast_coarse_to_fine`` use it.
+  closes is not marched. The field is either the flat march field or the
+  volume itself: given a volume, the kernel computes each sample's field
+  value from its tsdf and weight planes where it reads it, so no V^3 field
+  is built per render, and the depth is the same to the bit. ``raycast``
+  and both phases of ``raycast_coarse_to_fine`` use it.
 
 CPU tensors run the plain versions, ``fuse_block_reference`` (the
 mapping/tsdf._fuse_block pass, torch.where-gated; per slot for
@@ -42,7 +45,9 @@ bit. The cull has a plain twin too, ``brick_mask_reference`` over
 it sound against _fuse_block's update predicate on the CPU and equal to
 cull_bricks' list on the card.
 
-``LAUNCHES`` counts kernel launches per entry (never reference runs).
+``LAUNCHES`` counts kernel launches per entry (never reference runs):
+``tsdf_raycast`` every march, ``tsdf_raycast_planes`` the marches of them
+that read a volume's planes.
 """
 
 from __future__ import annotations
@@ -60,7 +65,7 @@ from realsensetracker_tpu_torch.kernels import build
 INTEGRATE_SOURCE = "tsdf_integrate.cu"
 RAYCAST_SOURCE = "tsdf_raycast.cu"
 SOURCES = (INTEGRATE_SOURCE, RAYCAST_SOURCE)
-LAUNCHES = {"tsdf_depth_tiles": 0, "tsdf_cull": 0, "tsdf_integrate": 0, "tsdf_raycast": 0}
+LAUNCHES = {"tsdf_depth_tiles": 0, "tsdf_cull": 0, "tsdf_integrate": 0, "tsdf_raycast": 0, "tsdf_raycast_planes": 0}
 MAX_RESOLUTION = 1290  # (ix * V + iy) * V + iz stays inside int32 within a slot
 MAX_SLOTS = 65535  # the slot is the launch grid's y
 BRICK = (8, 8, 32)  # voxels per brick along x, y, z (csrc/tsdf_integrate.cu kBx, kBy, kBz)
@@ -95,15 +100,18 @@ def _library(source: str) -> ctypes.CDLL:
             lib.rst_tsdf_integrate_error_string.argtypes = [i32]
             lib.rst_tsdf_integrate_error_string.restype = ctypes.c_char_p
         else:
-            lib.rst_tsdf_raycast.argtypes = [
-                ptr, ptr, ptr, f, ptr, ptr,  # field, pose (4, 4), z_start (nullable), z0, gate (nullable), depth out
+            march_args = [
+                ptr, ptr, f, ptr, ptr,  # pose (4, 4), z_start (nullable), z0, gate (nullable), depth out
                 i32, i32,  # H, W
                 f, f, f, f,  # cx, cy, 1/fx, 1/fy
                 i32, f, f, f, f,  # V, origin, 1/voxel size
                 f, i32, i32, f,  # step, n_steps, subvoxel_iters, delta
                 ptr,
             ]
-            lib.rst_tsdf_raycast.restype = i32
+            lib.rst_tsdf_raycast.argtypes = [ptr, *march_args]  # the flat field
+            lib.rst_tsdf_raycast_planes.argtypes = [ptr, ptr, *march_args]  # the tsdf and weight planes
+            for fn in (lib.rst_tsdf_raycast, lib.rst_tsdf_raycast_planes):
+                fn.restype = i32
             lib.rst_tsdf_raycast_error_string.argtypes = [i32]
             lib.rst_tsdf_raycast_error_string.restype = ctypes.c_char_p
         _libs[source] = lib
@@ -521,45 +529,59 @@ def march_reference(field, pose_world_from_cam, intr: camera.Intrinsics, cfg, n_
     return torch.where(found, z_hit, 0.0)
 
 
-def march(field, pose_world_from_cam, intr: camera.Intrinsics, cfg, n_steps: int, z_start=None, gate=None,
+def march(source, pose_world_from_cam, intr: camera.Intrinsics, cfg, n_steps: int, z_start=None, gate=None,
           subvoxel_iters: int = 0) -> torch.Tensor:
-    """March every ray of ``intr`` through the flat (V^3,) ``field`` seen
-    from ``pose_world_from_cam`` (4, 4) f32: from per-ray ``z_start``
-    ((H, W) f32, None: cfg.min_depth) for ``n_steps`` steps, then
+    """March every ray of ``intr`` through ``source`` seen from
+    ``pose_world_from_cam`` (4, 4) f32: from per-ray ``z_start`` ((H, W)
+    f32, None: cfg.min_depth) for ``n_steps`` steps, then
     ``subvoxel_iters`` trilinear refinements of the hits ``gate`` ((H, W)
-    bool, None: all) keeps. Returns (H, W) depth, 0 where no kept hit. CUDA
-    tensors launch the kernel on the current stream without synchronizing;
-    CPU tensors run march_reference."""
-    dev = field.device
+    bool, None: all) keeps. ``source`` is the flat (V^3,) march field
+    (mapping/tsdf.march_field) or a volume (a TsdfVolume, or anything with
+    its ``tsdf`` and ``weight``) whose planes are contiguous (V, V, V) f32:
+    the kernel then reads each sample's field value from the planes, and
+    the depth is the same to the bit. Returns (H, W) depth, 0 where no kept
+    hit. CUDA tensors launch the kernel on the current stream without
+    synchronizing; CPU tensors run march_reference (a volume's field built
+    first)."""
+    from realsensetracker_tpu_torch.mapping.tsdf import f32, march_field
+
+    planes = not isinstance(source, torch.Tensor)
+    dev = (source.tsdf if planes else source).device
     h, w = int(intr.height), int(intr.width)
     v = cfg.resolution
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {dev}")
     if dev.type == "cpu":
-        return march_reference(field, pose_world_from_cam, intr, cfg, n_steps, z_start, gate, subvoxel_iters)
+        return march_reference(march_field(source) if planes else source, pose_world_from_cam, intr, cfg, n_steps,
+                               z_start, gate, subvoxel_iters)
     if v > MAX_RESOLUTION:
         raise ValueError(f"resolution {v} > {MAX_RESOLUTION}")
-    _check("field", field, (v * v * v,), torch.float32, dev)
+    if planes:
+        _check("tsdf", source.tsdf, (v, v, v), torch.float32, dev)
+        _check("weight", source.weight, (v, v, v), torch.float32, dev)
+    else:
+        _check("field", source, (v * v * v,), torch.float32, dev)
     _check("pose", pose_world_from_cam, (4, 4), torch.float32, dev)
     if z_start is not None:
         _check("z_start", z_start, (h, w), torch.float32, dev)
     if gate is not None:
         _check("gate", gate, (h, w), torch.bool, dev)
-    from realsensetracker_tpu_torch.mapping.tsdf import f32
 
     out = torch.empty((h, w), dtype=torch.float32, device=dev)
     lib = _library(RAYCAST_SOURCE)
     o = cfg.origin
-    with torch.cuda.device(dev):
-        err = lib.rst_tsdf_raycast(
-            field.data_ptr(), pose_world_from_cam.data_ptr(), _ptr(z_start), f32(cfg.min_depth), _ptr(gate),
-            out.data_ptr(), h, w,
+    args = (pose_world_from_cam.data_ptr(), _ptr(z_start), f32(cfg.min_depth), _ptr(gate), out.data_ptr(), h, w,
             f32(intr.cx), f32(intr.cy), camera.reciprocal(intr.fx), camera.reciprocal(intr.fy),
             v, f32(o[0]), f32(o[1]), f32(o[2]), f32(1.0 / cfg.voxel_size),
             f32(cfg.step_frac * cfg.trunc), int(n_steps), int(subvoxel_iters), f32(0.6 * cfg.voxel_size),
-            _stream(dev),
-        )
+            _stream(dev))
+    with torch.cuda.device(dev):
+        if planes:
+            err = lib.rst_tsdf_raycast_planes(source.tsdf.data_ptr(), source.weight.data_ptr(), *args)
+        else:
+            err = lib.rst_tsdf_raycast(source.data_ptr(), *args)
     if err != 0:
         raise RuntimeError(f"tsdf_raycast launch failed: {lib.rst_tsdf_raycast_error_string(err).decode()} ({err})")
     LAUNCHES["tsdf_raycast"] += 1
+    LAUNCHES["tsdf_raycast_planes"] += int(planes)
     return out

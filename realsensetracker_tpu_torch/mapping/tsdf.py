@@ -17,7 +17,12 @@ synthetic low-noise depth frame to track against
 * ``raycast`` and ``raycast_coarse_to_fine`` march every ray through the
   fused march field, nearest-neighbour, to its first +/- crossing, then
   refine it trilinearly. On CUDA tensors each march is one launch of
-  kernels/tsdf.march (csrc/tsdf_raycast.cu), one thread per ray.
+  kernels/tsdf.march (csrc/tsdf_raycast.cu), one thread per ray. A whole
+  volume on the card with contiguous planes is marched as it is: the
+  kernel reads each sample's field value from the tsdf and weight planes,
+  and no V^3 field is built (``march_source``). A sharded volume's field
+  is still built and gathered along x, and a CPU volume's field feeds the
+  plain version.
 * ``extract_surface*`` emit the zero crossings between axis-adjacent
   voxels as a fixed-capacity masked Cloud: plain torch, run on demand.
 
@@ -362,6 +367,20 @@ def march_field(vol: TsdfVolume) -> torch.Tensor:
     return torch.where(vol.weight > 0, vol.tsdf.clamp(-1.0, 1.0), UNOBSERVED).reshape(-1)
 
 
+def march_source(vol: TsdfVolume):
+    """What the renders march (kernels/tsdf.march's ``source``): ``vol``
+    itself where the kernel can read its planes -- a whole volume on the
+    card, tsdf and weight contiguous -- else its march_field (a sharded
+    volume's gathered, a CPU volume's for the plain version, a strided
+    plane's: never copied behind the caller's back)."""
+    from realsensetracker_tpu_torch.mapping import sharded
+
+    if (not sharded.is_sharded(vol) and vol.tsdf.is_cuda and vol.tsdf.is_contiguous()
+            and vol.weight.is_contiguous()):
+        return vol
+    return march_field(vol)
+
+
 class _Grid(NamedTuple):
     v: int
     origin: tuple[float, float, float]  # f32 values
@@ -467,7 +486,7 @@ def raycast(vol: TsdfVolume, pose_world_from_cam: torch.Tensor, intr: camera.Int
     trilinear refinement; 0 where a ray crosses no observed surface."""
     from realsensetracker_tpu_torch.kernels import tsdf as tsdf_kernels
 
-    return tsdf_kernels.march(march_field(vol), pose_world_from_cam.to(torch.float32).contiguous(), intr, cfg,
+    return tsdf_kernels.march(march_source(vol), pose_world_from_cam.to(torch.float32).contiguous(), intr, cfg,
                               cfg.num_steps, subvoxel_iters=cfg.subvoxel_iters)
 
 
@@ -507,10 +526,10 @@ def raycast_coarse_to_fine(vol: TsdfVolume, pose_world_from_cam: torch.Tensor, i
     if h % coarse or w % coarse:
         raise ValueError(f"{h}x{w} not divisible by coarse={coarse}")
     pose = pose_world_from_cam.to(torch.float32).contiguous()
-    field = march_field(vol)
-    depth_c = tsdf_kernels.march(field, pose, coarse_intrinsics(intr, coarse), cfg, cfg.num_steps, subvoxel_iters=0)
+    source = march_source(vol)  # both phases march the same planes or field
+    depth_c = tsdf_kernels.march(source, pose, coarse_intrinsics(intr, coarse), cfg, cfg.num_steps, subvoxel_iters=0)
     z_start, seeded_up = coarse_seeds(depth_c, coarse, cfg)
-    return tsdf_kernels.march(field, pose, intr, cfg, refine_steps, z_start=z_start, gate=seeded_up,
+    return tsdf_kernels.march(source, pose, intr, cfg, refine_steps, z_start=z_start, gate=seeded_up,
                               subvoxel_iters=cfg.subvoxel_iters)
 
 

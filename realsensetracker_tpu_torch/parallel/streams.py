@@ -21,7 +21,8 @@ slots advance, ``seed`` slots restart at identity, and each returns one
 packed stats row per slot -- one device-to-host copy per dispatch.
 
 The dense slots hold S volumes as (S, V, V, V) planes; each slot renders
-through kernels/tsdf.march (S launches per step), and all S integrate in
+through kernels/tsdf.march, which reads the slot's planes as they are (no
+V^3 march field per render), and all S integrate in
 one mapping/tsdf.integrate_slots call (the integrate kernel's slot axis:
 three launches per step, the tile map, the cull and the update). The
 volumes update IN PLACE, gated on the device: clone the planes to keep an

@@ -48,7 +48,12 @@ the slot entry (fuse_blocks, one launch of each kernel for S slots with
 mixed gates) bit-identical to a launch per slot; the raycast with the hit
 masks identical and depth within 1e-5 where both hit, full and
 coarse-to-fine, and at 128^3 and 512^3 bit for bit (full, coarse-to-fine,
-a per-ray z_start, a gate, no steps); Tracker(method="tsdf") on the card
+a per-ray z_start, a gate, no steps); the march of a volume's planes bit
+for bit equal to the plain march of its field in the same cases, on fused
+planes, on adversarial ones (weight 0 under any tsdf, tsdf beyond [-1, 1],
+-0.0, NaN in tsdf and in weight) and on a slot of an (S, V, V, V) stream
+volume, and a render of a whole volume launching the two plane marches and
+coarse_seeds' ops and nothing else; Tracker(method="tsdf") on the card
 within 1e-4 of the CPU.
 
 Host I/O: 64 u16 frames through FrameStream(prefetch=2), each read by the
@@ -837,6 +842,66 @@ def test_tsdf_raycast_kernel_matches_reference(cuda, v, coarse):
     assert (got[hit] - ref[hit]).abs().max().item() <= 1e-5
 
 
+def _planes(v, device, kind):
+    """(cfg, 240x320 intrinsics, a volume, the pose to render from) for the
+    raycast bit-identity tests: ``fused`` the default scene's 240x320
+    frames from _tsdf_setup's poses fused into V^3 (a 4.8 m cube);
+    ``adversarial`` that volume with, by seeded masks, 5% of voxels at
+    weight 0 under tsdf in [-3, 3], 5% of observed tsdf tripled (beyond
+    [-1, 1]), 2% at -0.0, 1% NaN tsdf and 1% NaN weight; ``slot`` slot 1
+    of a (3, V, V, V) stream volume (a view) holding it, the other slots
+    other states."""
+    cfg, _, _, _, poses = _tsdf_setup(v, device)
+    intr = _intr(240, 320)
+    sc = synthetic.default_scene(seed=3, device=device)
+    vol = tsdf_mod.init_volume(cfg, device=device)
+    for T in poses:
+        tsdf_mod.integrate(vol, synthetic.render_depth(intr, T, sc), T, intr, cfg)
+    if kind == "adversarial":
+        g = torch.Generator(device=device).manual_seed(v)
+        pick = lambda share: torch.rand(vol.tsdf.shape, generator=g, device=device) < share  # noqa: E731
+        unseen, beyond, neg0, nan_t, nan_w = pick(0.05), pick(0.05), pick(0.02), pick(0.01), pick(0.01)
+        tsdf = torch.where(unseen, 6.0 * torch.rand(vol.tsdf.shape, generator=g, device=device) - 3.0, vol.tsdf)
+        tsdf = torch.where(beyond & (vol.weight > 0), 3.0 * tsdf, tsdf)
+        tsdf = torch.where(neg0, -0.0, tsdf)
+        tsdf = torch.where(nan_t, float("nan"), tsdf)
+        weight = torch.where(unseen, 0.0, vol.weight)
+        weight = torch.where(nan_w, float("nan"), weight)
+        vol = tsdf_mod.TsdfVolume(tsdf.contiguous(), weight.contiguous())
+    elif kind == "slot":
+        stream = tsdf_mod.TsdfVolume(torch.stack([-vol.tsdf, vol.tsdf, vol.tsdf.flip(2)]),
+                                     torch.stack([vol.weight.flip(0), vol.weight, vol.weight]))
+        vol = tsdf_mod.TsdfVolume(stream.tsdf[1], stream.weight[1])
+        assert vol.tsdf.is_contiguous() and vol.tsdf.data_ptr() != stream.tsdf.data_ptr()
+    return cfg, intr, vol, poses[-1]
+
+
+def _march_case(case, source, field, T, intr, cfg):
+    """(n_steps, keywords) of one case of the raycast bit-identity tests:
+    the full march, both phases of coarse-to-fine (coarse 4; the coarse
+    phase marched from ``source`` and held here bit for bit to
+    march_reference on ``field``), a per-ray z_start (numpy seed 9) with
+    the refine budget, a random gate (the rays it closes are not marched),
+    no steps."""
+    rng = np.random.RandomState(9)
+    full = tsdf_kernels.march_reference(field, T, intr, cfg, cfg.num_steps)
+    z0 = torch.from_numpy(rng.uniform(0.0, 0.3, full.shape).astype(np.float32)).to(full.device)
+    z0 = torch.where(full > 0, full - z0, float(cfg.min_depth)).contiguous()
+    gate = torch.from_numpy(rng.rand(*full.shape) < 0.5).to(full.device)
+    kw = dict(subvoxel_iters=cfg.subvoxel_iters)
+    if case == "coarse_to_fine":
+        ci = tsdf_mod.coarse_intrinsics(intr, 4)
+        dc = tsdf_kernels.march(source, T, ci, cfg, cfg.num_steps)
+        assert torch.equal(dc, tsdf_kernels.march_reference(field, T, ci, cfg, cfg.num_steps))
+        z_c, seeded = tsdf_mod.coarse_seeds(dc, 4, cfg)
+        return cfg.refine_steps, dict(kw, z_start=z_c, gate=seeded)
+    if case == "z_start":
+        return cfg.refine_steps, dict(kw, z_start=z0)
+    if case == "gate":
+        return cfg.num_steps, dict(kw, gate=gate)
+    return (0 if case == "no_steps" else cfg.num_steps), kw
+
+
 @pytest.mark.parametrize("case", ["full", "coarse_to_fine", "z_start", "gate", "no_steps"])
 @pytest.mark.parametrize("v", [128, 512])
 def test_tsdf_raycast_kernel_bit_identical(cuda, v, case):
@@ -845,32 +910,9 @@ def test_tsdf_raycast_kernel_bit_identical(cuda, v, case):
     coarse-to-fine (coarse 4), a per-ray z_start (numpy seed 9) with the
     refine budget, a random gate (the rays it closes are not marched), and
     no steps (all zeros)."""
-    cfg, _, depths, _, poses = _tsdf_setup(v, cuda)
-    intr = _intr(240, 320)
-    sc = synthetic.default_scene(seed=3, device=cuda)
-    vol = tsdf_mod.init_volume(cfg, device=cuda)
-    for T in poses:
-        tsdf_mod.integrate(vol, synthetic.render_depth(intr, T, sc), T, intr, cfg)
+    cfg, intr, vol, T = _planes(v, cuda, "fused")
     field = tsdf_mod.march_field(vol)
-    T = poses[-1]
-    rng = np.random.RandomState(9)
-    full = tsdf_kernels.march_reference(field, T, intr, cfg, cfg.num_steps)
-    z0 = torch.from_numpy(rng.uniform(0.0, 0.3, full.shape).astype(np.float32)).to(cuda)
-    z0 = torch.where(full > 0, full - z0, float(cfg.min_depth)).contiguous()
-    gate = torch.from_numpy(rng.rand(*full.shape) < 0.5).to(cuda)
-    n_steps, kw = cfg.num_steps, dict(subvoxel_iters=cfg.subvoxel_iters)
-    if case == "coarse_to_fine":
-        ci = tsdf_mod.coarse_intrinsics(intr, 4)
-        dc, dc_ref = (fn(field, T, ci, cfg, cfg.num_steps) for fn in (tsdf_kernels.march, tsdf_kernels.march_reference))
-        assert torch.equal(dc, dc_ref)
-        z_c, seeded = tsdf_mod.coarse_seeds(dc_ref, 4, cfg)
-        n_steps, kw = cfg.refine_steps, dict(kw, z_start=z_c, gate=seeded)
-    elif case == "z_start":
-        n_steps, kw = cfg.refine_steps, dict(kw, z_start=z0)
-    elif case == "gate":
-        kw = dict(kw, gate=gate)
-    elif case == "no_steps":
-        n_steps = 0
+    n_steps, kw = _march_case(case, field, field, T, intr, cfg)
     before = tsdf_kernels.LAUNCHES["tsdf_raycast"]
     got = tsdf_kernels.march(field, T, intr, cfg, n_steps, **kw)
     ref = tsdf_kernels.march_reference(field, T, intr, cfg, n_steps, **kw)
@@ -879,6 +921,78 @@ def test_tsdf_raycast_kernel_bit_identical(cuda, v, case):
     assert torch.equal(got, ref)
     share = (got > 0).float().mean().item()
     assert share == 0.0 if case == "no_steps" else share > (0.15 if case == "gate" else 0.3)
+
+
+@pytest.mark.parametrize("kind", ["fused", "adversarial", "slot"])
+@pytest.mark.parametrize("case", ["full", "coarse_to_fine", "z_start", "gate", "no_steps"])
+@pytest.mark.parametrize("v", [128, 512])
+def test_tsdf_raycast_planes_bit_identical(cuda, v, case, kind):
+    """The march of a volume's tsdf and weight planes (no march field built)
+    against march_reference on march_field(vol), and against the kernel's
+    march of that field, bit for bit, in the cases of
+    test_tsdf_raycast_kernel_bit_identical, on fused, adversarial and slot
+    planes (_planes). Each plane march counts once in
+    LAUNCHES["tsdf_raycast_planes"] and once in LAUNCHES["tsdf_raycast"]."""
+    cfg, intr, vol, T = _planes(v, cuda, kind)
+    field = tsdf_mod.march_field(vol)
+    n_steps, kw = _march_case(case, vol, field, T, intr, cfg)
+    before = dict(tsdf_kernels.LAUNCHES)
+    got = tsdf_kernels.march(vol, T, intr, cfg, n_steps, **kw)
+    assert tsdf_kernels.LAUNCHES == {**before, "tsdf_raycast": before["tsdf_raycast"] + 1,
+                                     "tsdf_raycast_planes": before["tsdf_raycast_planes"] + 1}
+    ref = tsdf_kernels.march_reference(field, T, intr, cfg, n_steps, **kw)
+    by_field = tsdf_kernels.march(field, T, intr, cfg, n_steps, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref) and torch.equal(got, by_field)
+    share = (got > 0).float().mean().item()
+    assert share == 0.0 if case == "no_steps" else share > (0.1 if case == "gate" else 0.2)
+
+
+def _device_kernels(fn):
+    """(fn(), the sorted names of the device operations it ran)."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    return out, sorted(e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+@pytest.mark.parametrize("coarse", [1, 4])
+def test_tsdf_render_of_a_whole_volume_builds_no_field(cuda, coarse):
+    """render_model_depth on a whole 512^3 volume on the card marches its
+    planes: two plane marches (one without coarse-to-fine), and no device
+    operation besides them but coarse_seeds' own; the render's memory grows
+    by far less than one V^3 plane (the field and its two temporaries were
+    9 bytes a voxel); the depth equals the march of the field."""
+    v = 512
+    cfg, intr, vol, T = _planes(v, cuda, "fused")
+    cfg = cfg._replace(raycast_coarse=coarse)
+    tsdf_mod.render_model_depth(vol, T, intr, cfg)  # warm: the kernel's build, the profiler's start
+    before = dict(tsdf_kernels.LAUNCHES)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    depth, names = _device_kernels(lambda: tsdf_mod.render_model_depth(vol, T, intr, cfg))
+    grew = torch.cuda.max_memory_allocated() - base
+    marches = 2 if coarse > 1 else 1
+    assert {k: tsdf_kernels.LAUNCHES[k] - before[k] for k in before} == {
+        "tsdf_depth_tiles": 0, "tsdf_cull": 0, "tsdf_integrate": 0, "tsdf_raycast": marches,
+        "tsdf_raycast_planes": marches}
+    assert grew < v ** 3, grew
+    assert sum("raycast_kernel" in n for n in names) == marches
+    others = [n for n in names if "raycast_kernel" not in n]
+    field = tsdf_mod.march_field(vol)
+    if coarse > 1:
+        dc = tsdf_kernels.march(field, T, tsdf_mod.coarse_intrinsics(intr, coarse), cfg, cfg.num_steps)
+        _, seeds = _device_kernels(lambda: tsdf_mod.coarse_seeds(dc, coarse, cfg))
+        assert others == seeds and len(seeds) > 0
+        z_c, seeded = tsdf_mod.coarse_seeds(dc, coarse, cfg)
+        want = tsdf_kernels.march(field, T, intr, cfg, cfg.refine_steps, z_start=z_c, gate=seeded,
+                                  subvoxel_iters=cfg.subvoxel_iters)
+    else:
+        assert others == []
+        want = tsdf_kernels.march(field, T, intr, cfg, cfg.num_steps, subvoxel_iters=cfg.subvoxel_iters)
+    torch.cuda.synchronize()
+    assert torch.equal(depth, want) and (depth > 0).float().mean().item() > 0.2
 
 
 def _fuse_checked(vk, vp, depth, color, pose_wc, intr, cfg, gate=None, start=None, fits=None, x0=0):
@@ -990,7 +1104,7 @@ def test_tsdf_fuse_blocks_equals_single_launches(cuda, mode):
         before = dict(tsdf_kernels.LAUNCHES)
         tsdf_kernels.fuse_blocks(slots, d, c, pcw, intr, cfg, gates=gates, starts=starts, fits=fits)
         assert {k: tsdf_kernels.LAUNCHES[k] - before[k] for k in before} == {
-            "tsdf_depth_tiles": 1, "tsdf_cull": 1, "tsdf_integrate": 1, "tsdf_raycast": 0}
+            "tsdf_depth_tiles": 1, "tsdf_cull": 1, "tsdf_integrate": 1, "tsdf_raycast": 0, "tsdf_raycast_planes": 0}
         for i in range(s):
             tsdf_kernels.fuse_block(tsdf_mod.TsdfVolume(*(None if a is None else a[i] for a in single)), d[i],
                                     None if c is None else c[i], pcw[i], intr, cfg, gate=gates[i],
@@ -1028,7 +1142,8 @@ def test_tsdf_tracker_on_cuda_matches_cpu(cuda):
             assert tsdf_kernels.LAUNCHES == {"tsdf_depth_tiles": before["tsdf_depth_tiles"] + 6,
                                              "tsdf_cull": before["tsdf_cull"] + 6,
                                              "tsdf_integrate": before["tsdf_integrate"] + 6,
-                                             "tsdf_raycast": before["tsdf_raycast"] + 5}
+                                             "tsdf_raycast": before["tsdf_raycast"] + 5,
+                                             "tsdf_raycast_planes": before["tsdf_raycast_planes"] + 5}
         poses.append(np.stack([r.pose for r in res]))
     np.testing.assert_allclose(poses[1], poses[0], atol=1e-4)
 

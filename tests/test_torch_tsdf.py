@@ -8,7 +8,11 @@ tests/test_submaps.py:30-32. Bars: integrate (full, slab, colored) tsdf and
 color within 1e-6 with weights and update masks equal; raycast (full and
 coarse-to-fine) hit masks equal and depth within 1e-5; render_model_rgbd
 within 1e-5; the three surface extractions with equal masks and order and
-values within 1e-6 on the same volume.
+values within 1e-6 on the same volume. The march of a volume (the card
+reads its planes) equals the march of its field bit for bit, and only a
+whole, contiguous volume on the card is marched as a volume
+(mapping/tsdf.march_source); the benchmark's raycast roofline reads such a
+march as it reads a march of the field.
 
 The integrate kernel's brick cull is held sound through its plain twin
 (kernels/tsdf.brick_mask_reference): no voxel that _fuse_block's predicate
@@ -252,6 +256,130 @@ def test_render_model_depth_dispatches_on_raycast_coarse(fused):
     c2f = CFG._replace(raycast_coarse=4)
     assert torch.equal(P.render_model_depth(pv, T, INTR, CFG), P.raycast(pv, T, INTR, CFG))
     assert torch.equal(P.render_model_depth(pv, T, INTR, c2f), P.raycast_coarse_to_fine(pv, T, INTR, c2f, 4, 8))
+
+
+def _march_calls(source, field, case):
+    """kernels/tsdf.march on ``source`` (a volume or ``field``, its march
+    field) as the renders and the card tests call it: the full march, both
+    phases of coarse-to-fine (coarse 4), a per-ray z_start (numpy seed 9)
+    with the refine budget, a random gate, no steps. Returns the depths of
+    the calls."""
+    from realsensetracker_tpu_torch.kernels import tsdf as K
+
+    T = torch.from_numpy(POSES[4])
+    full = K.march_reference(field, T, INTR, CFG, CFG.num_steps)
+    rng = np.random.RandomState(9)
+    z0 = torch.where(full > 0, full - torch.from_numpy(rng.uniform(0.0, 0.3, full.shape).astype(np.float32)),
+                     float(CFG.min_depth)).contiguous()
+    gate = torch.from_numpy(rng.rand(*full.shape) < 0.5)
+    n_steps, kw = CFG.num_steps, dict(subvoxel_iters=CFG.subvoxel_iters)
+    if case == "coarse_to_fine":
+        dc = K.march(source, T, P.coarse_intrinsics(INTR, 4), CFG, CFG.num_steps, subvoxel_iters=0)
+        z_c, seeded = P.coarse_seeds(dc, 4, CFG)
+        return [dc, K.march(source, T, INTR, CFG, CFG.refine_steps, z_start=z_c, gate=seeded, **kw)]
+    if case == "z_start":
+        n_steps, kw = CFG.refine_steps, dict(kw, z_start=z0)
+    elif case == "gate":
+        kw = dict(kw, gate=gate)
+    elif case == "no_steps":
+        n_steps = 0
+    return [K.march(source, T, INTR, CFG, n_steps, **kw)]
+
+
+@pytest.mark.parametrize("case", ["full", "coarse_to_fine", "z_start", "gate", "no_steps"])
+def test_march_of_a_volume_equals_the_march_of_its_field(fused, case):
+    """kernels/tsdf.march given the volume (the card reads its planes; the
+    CPU builds its field) equals the call given march_field(vol), bit for
+    bit, in every case of the card's bit-identity test."""
+    _, pv = fused
+    vol = P.TsdfVolume(pv.tsdf, pv.weight)
+    field = P.march_field(vol)
+    got, want = _march_calls(vol, field, case), _march_calls(field, field, case)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert bool((got[-1] > 0).any()) == (case != "no_steps")
+
+
+class _CardLike(torch.Tensor):
+    """A CPU tensor that says it is on the card: march_source's route decided
+    as for a CUDA volume without one."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+@pytest.mark.parametrize("case", ["card", "cpu", "strided_tsdf", "strided_weight", "sharded"])
+def test_march_source_marches_only_whole_contiguous_card_volumes(fused, case):
+    """mapping/tsdf.march_source hands the kernel the volume itself only
+    where it is whole, on the card and its planes contiguous; a CPU volume,
+    a strided plane (never copied behind the caller's back) and a sharded
+    volume (one-rank gloo mesh: its field gathered along x) take the flat
+    march field, equal to the whole volume's, and render the same depth."""
+    import torch.distributed as dist
+
+    from realsensetracker_tpu_torch.mapping import sharded
+    from realsensetracker_tpu_torch.parallel.mesh import make_mesh
+
+    _, pv = fused
+    tsdf, weight = pv.tsdf, pv.weight
+    if case.startswith("strided"):  # the same values through a transposed view
+        strided = lambda a: a.transpose(0, 2).contiguous().transpose(0, 2)  # noqa: E731
+        tsdf, weight = (strided(tsdf), weight) if case == "strided_tsdf" else (tsdf, strided(weight))
+        assert not (tsdf.is_contiguous() and weight.is_contiguous())
+    if case in ("card", "strided_tsdf", "strided_weight"):
+        tsdf, weight = tsdf.as_subclass(_CardLike), weight.as_subclass(_CardLike)
+    vol = P.TsdfVolume(tsdf, weight)
+    want = P.march_field(P.TsdfVolume(pv.tsdf, pv.weight))
+    if case == "sharded":
+        mesh = make_mesh(device="cpu")
+        try:
+            vol = sharded.shard_volume(vol, mesh)
+            got = P.march_source(vol)
+            render = sharded.raycast(vol, torch.from_numpy(POSES[3]), INTR, CFG)
+        finally:
+            dist.destroy_process_group()
+        assert isinstance(got, torch.Tensor) and torch.equal(got, want)
+        assert torch.equal(render, P.raycast(pv, torch.from_numpy(POSES[3]), INTR, CFG))
+        return
+    got = P.march_source(vol)
+    if case == "card":
+        assert got is vol
+    else:
+        assert isinstance(got, torch.Tensor) and torch.equal(got.as_subclass(torch.Tensor), want)
+
+
+def test_roofline_reader_keeps_a_planes_march_as_a_field_march(fused):
+    """The benchmark's raycast roofline (h100bench/metrics/tsdf_raycast_roofline)
+    records kernels/tsdf.march by name, n_steps at position 4 and z_start,
+    gate and subvoxel_iters as keywords: a march of the volume keeps the
+    same depth, start, gate, steps and refinements as the march of its
+    field, so the reader's work is the same."""
+    import importlib
+
+    from h100bench import hooks, roofline
+    from h100bench.metrics import tsdf_raycast_roofline as reader
+
+    _, pv = fused
+    vol = P.TsdfVolume(pv.tsdf, pv.weight)
+    (module, name, keep), = reader.RECORDS.values()
+    field = P.march_field(vol)
+    logs = []
+    for source in (vol, field):
+        log = []
+        with hooks.recording(importlib.import_module(module), name, log, keep):
+            _march_calls(source, field, "coarse_to_fine")
+        logs.append(log)
+    assert len(logs[0]) == len(logs[1]) == 2
+    step = P.f32(CFG.step_frac * CFG.trunc)
+    for (out, z0, gate, n, refine), (out_f, z0_f, gate_f, n_f, refine_f) in zip(*logs):
+        assert torch.equal(out, out_f) and (n, refine) == (n_f, refine_f)
+        for a, b in ((z0, z0_f), (gate, gate_f)):
+            assert (a is None and b is None) or torch.equal(a, b)
+        start = CFG.min_depth if z0 is None else z0
+        assert roofline.march_gathers(out, start, gate, n, step, refine) == roofline.march_gathers(
+            out_f, start, gate_f, n_f, step, refine_f) > 0
+    assert [n for _, _, _, n, _ in logs[0]] == [CFG.num_steps, CFG.refine_steps]
 
 
 def test_render_model_rgbd_matches_jax(fused):
